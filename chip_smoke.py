@@ -5,10 +5,14 @@
 Phases (each prints one JSON line):
   1. card    — name and power limit; exits non-zero before building
                anything when no CUDA device is present;
-  2. build   — nvcc builds every hand-written kernel from csrc/;
+  2. build   — nvcc builds every hand-written kernel from csrc/ in this
+               run; ptxas's registers, spills (any spill fails) and stack
+               frame, and the main path's launch shape;
   3. compare — the ed25519 kernel against its plain torch version, both on
                the card, on the 26 libsodium edge vectors plus 4,096 seeded
-               rows (1/8 forged), and 256 rows against the spec;
+               rows (1/8 forged), and 256 rows against the spec; the
+               kernel's test-only double-scalar entry against the spec on
+               the special scalars;
   4. main    — ``admission_step`` on a 100,000-signature TxSetFrame batch
                (BASELINE config #2) padded to 131,072, and
                ``multi_validator_tally`` on a 64-validator 2-level FBA
@@ -16,12 +20,14 @@ Phases (each prints one JSON line):
                known forged mask and a recursive host oracle; every kernel
                must have been launched during this phase;
   5. times   — CUDA-event times (warm-up excluded) with the card's name
-               and power limit.
+               and power limit, and the verify kernel's bound from the
+               work that this run's rows need.
 Then the per-kernel JSON line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -38,6 +44,17 @@ TOP_THR, INNER_THR = 11, 3
 N_CANDIDATES = 64
 REPS = 5
 SEED = 20260601
+L = 2**252 + 27742317777372353535851937790883648493
+
+# Scalars below 2^253 (every h, and every s that can be accepted) at the
+# edges of the kernel's signed radix-16 recoding.
+SPECIAL_SCALARS = {
+    "0": 0, "1": 1, "8": 8, "15": 15, "16": 16, "L-1": L - 1,
+    "2^252": 2**252, "2^253-1": 2**253 - 1,
+    "nibbles_8": int("8" * 63, 16),
+    "alt_0f_f0": int.from_bytes(bytes([0x0F, 0xF0] * 15 + [0x0F, 0x10]),
+                                "little"),
+}
 
 
 def emit(obj) -> None:
@@ -161,19 +178,101 @@ def oracle_tally(qsets, voted, accepted):
     return acc, rat
 
 
-def bound_ms_verify(n: int) -> tuple[float, str]:
-    """Least time the H100 could take for ``n`` verifies: the larger of
-    bytes over 3.35 TB/s and int32 multiply-adds over 16.7 T/s (half the
-    67 TFLOP/s fp32 FMA rate: 64 vs 128 lanes per SM per clock).  Work:
-    3,868 field multiplications per signature (ladder 3,200, table 126,
-    decompress 275, inversion 265, encode 2) at 100 32x32->64-bit
-    multiply-adds each, counted for every row (the kernel has no early
-    exit); SHA-512 and carries not counted, so this stays a lower bound."""
-    imads = n * 3868 * 100
-    ops_ms = imads / 16.7e12 * 1e3
-    bytes_ms = n * (32 + 64 + 32 + 1) / 3.35e12 * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+def special_scalar_cases(ref, rng):
+    """(A encoding, s, h) rows: every special scalar as s, as h and as
+    both, beside seeded scalars mod L and seeded keys."""
+    rows = []
+    for k in SPECIAL_SCALARS.values():
+        a = ref.public_from_seed(rng.bytes(32))
+        other = int.from_bytes(rng.bytes(32), "little") % L
+        rows += [(a, k, other), (a, other, k), (a, k, k)]
+    return rows
+
+
+def check_double_scalar(ref, ed25519_cuda, rng, dev) -> int:
+    """The kernel's [s]B + [h](-A) against the spec on the special
+    scalars; returns the number of rows."""
+    rows = special_scalar_cases(ref, rng)
+    cols = [np.stack([np.frombuffer(v if isinstance(v, bytes) else
+                                    v.to_bytes(32, "little"), np.uint8)
+                      for v in col]) for col in zip(*rows)]
+    got = ed25519_cuda.double_scalar(
+        *(torch.as_tensor(c, device=dev) for c in cols)).cpu().numpy()
+    for i, (a, s, h) in enumerate(rows):
+        neg_a = ref.point_neg(ref.decode_point(a))
+        want = ref.encode_point(ref.double_scalar_mult(s, h, neg_a))
+        if got[i].tobytes() != want:
+            raise AssertionError(f"double_scalar != spec at s={s}, h={h}")
+    return len(rows)
+
+
+@functools.cache
+def decompress_work(ref, a: bytes) -> tuple[int, bool]:
+    """Field multiplications of the verify kernel's decompression of A
+    (18, and one more for the sqrt(-1) flip; its squarings are always 255),
+    and whether A decodes."""
+    p, y = ref.P, int.from_bytes(a, "little") & (2**255 - 1)
+    u, v = (y * y - 1) % p, (ref.D * y * y + 1) % p
+    x = u * pow(v, 3, p) * pow(u * pow(v, 7, p), (p - 5) // 8, p) % p
+    flip = (v * x * x + u) % p == 0
+    return 18 + flip, ref.decode_point(a) is not None
+
+
+def zero_digits(k: int) -> int:
+    """Digits of 0 among the 64 signed radix-16 digits of k < 2^254 (the
+    nibbles of k + 0x88..8 that are 8)."""
+    return (k + int("8" * 64, 16)).to_bytes(32, "little").hex().count("8")
+
+
+def verify_work(ref, a: bytes, sig: bytes, msg: bytes) -> tuple[int, int]:
+    """(squarings, multiplications) of the field that the verify kernel
+    (csrc/ed25519_verify.cu) does for one row.  A row that the byte checks
+    refuse takes none, one whose A is off the curve the decompression
+    alone.  Any other takes the decompression, the [1..8](-A) table (65
+    M), 64 windows of 4 doublings (16 S + 13 M) with an add of 8 M for
+    each nonzero digit of h and one of 6 M for each nonzero digit of s,
+    and the encoding (254 S + 13 M)."""
+    r, s = sig[:32], int.from_bytes(sig[32:], "little")
+    mask = 2**255 - 1
+    if (s >= ref.L or int.from_bytes(a, "little") & mask >= ref.P
+            or int.from_bytes(r, "little") & mask >= ref.P
+            or ref.has_small_order(a) or ref.has_small_order(r)):
+        return 0, 0
+    mul, decodes = decompress_work(ref, a)
+    if not decodes:
+        return 255, mul
+    h = ref.hram(r, a, msg)
+    mul += (65 + 64 * 13 + 8 * (64 - zero_digits(h))
+            + 6 * (64 - zero_digits(s)) + 13)
+    return 255 + 64 * 16 + 254, mul
+
+
+def bound_ms_verify(ref, pk, sg, mg) -> tuple[float, str, int]:
+    """Least time the H100 could take to verify these rows: the larger of
+    the bytes (each input read once, one byte out a row) over 3.35 TB/s
+    and the 32x32->64-bit products over 16.7 T/s, the int32 multiply-add
+    rate (half the 67 TFLOP/s fp32 FMA rate: 64 vs 128 lanes per SM per
+    clock).  Products: 36 a squaring and 64 a multiplication, for the work
+    that these rows need (``verify_work``); SHA-512, carries and the
+    prologue are not counted, so this stays a lower bound.  Returns the
+    ms, what bounds it, and the products."""
+    products = 0
+    for a, s, m in zip(pk, sg, mg):
+        sq, mul = verify_work(ref, a.tobytes(), s.tobytes(), m.tobytes())
+        products += 36 * sq + 64 * mul
+    ops_ms = products / 16.7e12 * 1e3
+    bytes_ms = len(pk) * (32 + 64 + 32 + 1) / 3.35e12 * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", products)
+
+
+def bound_ms_ref10_count(n: int) -> float:
+    """The bound as first counted, for the radix-2^25.5 reference
+    algorithm: 3,868 field multiplications of 100 products each per row,
+    over the same 16.7 T/s.  Printed beside ``bound_ms_verify`` so that
+    shares of it compare with the first kernel's; it counts more than
+    twice the work the kernel needs, so it is not the bound."""
+    return n * 3868 * 100 / 16.7e12 * 1e3
 
 
 def main() -> int:
@@ -198,11 +297,13 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     built = ed25519_cuda.build()
+    ptxas = ed25519_cuda.ptxas_stats(built.log)
+    shape = ed25519_cuda.launch_shape(pad_signature_batch(N_ROWS))
     emit({"phase": "build", "kernels": [ed25519_cuda.KERNEL],
           "seconds": time.perf_counter() - t0, "nvcc_seconds": built.seconds,
-          "ptxas": [ln.strip() for ln in built.log.splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or "stack frame" in ln]})
+          "ptxas": ptxas, "main_path_launch": shape})
+    if ptxas["spill_stores"] or ptxas["spill_loads"]:
+        raise AssertionError(f"ed25519_verify_kernel spills: {ptxas}")
 
     # -- 3. kernel vs plain version, on the card -----------------------------
     rng = np.random.default_rng(SEED)
@@ -233,9 +334,11 @@ def main() -> int:
                           cmp_np[2][r].tobytes())
         if bool(got_np[r]) != spec:
             raise AssertionError(f"kernel != spec at row {r}")
+    dsm_rows = check_double_scalar(ref, ed25519_cuda, rng, dev)
     emit({"phase": "compare", "rows": n_cmp, "edge_rows": 26,
           "forged_rows": int(forged.size), "accepted": int(got_np.sum()),
           "kernel_eq_plain": True, "spec_sample": int(sample.size),
+          "double_scalar_special_rows": dsm_rows,
           "max_abs_err": max_abs_err, "sign_seconds": sign_s})
 
     # -- 4. main path at full size -------------------------------------------
@@ -301,7 +404,11 @@ def main() -> int:
                             reps=2)
     step_ms = cuda_ms(lambda: A.admission_step(batch))
     tally_ms = cuda_ms(lambda: A.multi_validator_tally(qt, vt, at))
-    bound_ms, bound_by = bound_ms_verify(padded)
+    t0 = time.perf_counter()
+    bound_ms, bound_by, products = bound_ms_verify(
+        ref, *(t.cpu().numpy() for t in kin))
+    bound_s = time.perf_counter() - t0
+    ref10_ms = bound_ms_ref10_count(padded)
     emit({"phase": "times", "card": card_line,
           "verify_kernel_ms": kernel_ms, "verify_rows": padded,
           "verify_sigs_per_s": padded / kernel_ms * 1e3,
@@ -311,6 +418,9 @@ def main() -> int:
           "admission_real_sigs_per_s": N_ROWS / step_ms * 1e3,
           "multi_validator_tally_ms": tally_ms,
           "verify_bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_products": products, "bound_seconds": bound_s,
+          "verify_share_of_bound": bound_ms / kernel_ms,
+          "verify_bound_ms_ref10_count": ref10_ms,
           "reps": REPS, "plain_reps": 2,
           "total_seconds": time.perf_counter() - t_start})
 
@@ -320,7 +430,11 @@ def main() -> int:
         "replaces": "stellar_core_tpu/ops/ed25519_pallas.py:364",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]})
+        "library_ms": None, "bound_ms_ref10_count": ref10_ms,
+        "registers": ptxas["registers"],
+        "spill_bytes": ptxas["spill_stores"] + ptxas["spill_loads"],
+        "stack_frame_bytes": ptxas["stack_frame_bytes"],
+        "blocks_per_sm": shape["blocks_per_sm"]}]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,20 @@
 """Build the port's hand-written CUDA kernels and load them with ctypes.
 
 Each kernel source in ``csrc/`` has a plain C entry point; ``build`` runs
-``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the repository
-root (listed in ``.gitignore``), keyed by a hash of the source, the
-generated headers and the flags, and loads the shared library.  Nothing
-here runs at import time: the first call that needs a kernel builds it.
+``nvcc`` for ``sm_90a`` once per process, in a fresh directory under
+``build/torch_kernels/`` at the repository root (listed in
+``.gitignore``, removed once the library is loaded), so that the
+compiler's report (registers, spills, stack frame) always belongs to the
+library in use.  Nothing here runs at import time: the first call that
+needs a kernel builds it.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from dataclasses import dataclass
@@ -29,7 +31,7 @@ class Built:
     """A loaded kernel library and how it was built."""
 
     lib: ctypes.CDLL
-    seconds: float  # nvcc wall time; 0.0 when an earlier build was reused
+    seconds: float  # nvcc wall time
     log: str        # nvcc / ptxas output (registers, spills, shared memory)
 
 
@@ -52,27 +54,19 @@ def nvcc() -> str:
 
 def build(name: str, source: str, headers: dict[str, str]) -> Built:
     """Compile ``csrc/<source>`` (with generated ``headers``, file name ->
-    text) into ``lib<name>.so`` and load it.  Raises RuntimeError with the
-    compiler's output when nvcc fails."""
-    src_path = CSRC / source
-    h = hashlib.sha256(src_path.read_bytes())
-    for fname in sorted(headers):
-        h.update(fname.encode() + b"\0" + headers[fname].encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    key = f"{name}-{h.hexdigest()[:16]}"
+    text) into ``lib<name>.so`` and load it, once per process.  Raises
+    RuntimeError with the compiler's output when nvcc fails."""
     with _lock:
-        if key in _loaded:
-            return _loaded[key]
-        out_dir = BUILD_DIR / key
-        so = out_dir / f"lib{name}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
+        if name in _loaded:
+            return _loaded[name]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix=f"{name}-",
+                                         dir=BUILD_DIR) as out_dir:
             for fname, text in headers.items():
-                (out_dir / fname).write_text(text)
-            tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp),
-                   str(src_path)]
+                (Path(out_dir) / fname).write_text(text)
+            so = Path(out_dir) / f"lib{name}.so"
+            cmd = [nvcc(), *NVCC_FLAGS, "-I", out_dir, "-o", str(so),
+                   str(CSRC / source)]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
@@ -80,7 +74,7 @@ def build(name: str, source: str, headers: dict[str, str]) -> Built:
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {source} "
                                    f"(rc={res.returncode}):\n{log}")
-            os.replace(tmp, so)
-        built = Built(ctypes.CDLL(str(so)), seconds, log)
-        _loaded[key] = built
+            # the mapping outlives the file
+            built = Built(ctypes.CDLL(str(so)), seconds, log)
+        _loaded[name] = built
         return built

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import numpy as np
 import torch
@@ -39,29 +40,23 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# constants header (radix 2^25.5 field elements, see the .cu file)
+# constants header (radix 2^32 field elements, see the .cu file)
 # ---------------------------------------------------------------------------
 
-def fe10(v: int) -> list[int]:
-    """Python int (mod p) -> 10 canonical limbs of alternating 26/25 bits."""
-    v %= ref.P
-    out = []
-    for i in range(10):
-        width = 25 if i & 1 else 26
-        out.append(v & ((1 << width) - 1))
-        v >>= width
-    return out
+def fe8(v: int) -> list[int]:
+    """Python int (mod p) -> 8 canonical little-endian 32-bit words."""
+    return _limbs32(v % ref.P, 8)
 
 
 def _b_table() -> list[list[list[int]]]:
-    """[0..15]*B in extended coordinates with Z = 1."""
+    """[1..8]*B in affine niels form: (y + x, y - x, 2 d x y)."""
     rows, pt = [], ref.IDENT
-    for _ in range(16):
+    for _ in range(8):
+        pt = ref.point_add(pt, ref.to_extended(ref.B))
         x, y, z, _t = pt
         zi = pow(z, ref.P - 2, ref.P)
         xa, ya = x * zi % ref.P, y * zi % ref.P
-        rows.append([fe10(xa), fe10(ya), fe10(1), fe10(xa * ya)])
-        pt = ref.point_add(pt, ref.to_extended(ref.B))
+        rows.append([fe8(ya + xa), fe8(ya - xa), fe8(2 * ref.D * xa * ya)])
     return rows
 
 
@@ -75,24 +70,24 @@ def _arr(ctype: str, name: str, dims: str, body) -> str:
     def fmt(x):
         if isinstance(x, (list, tuple)):
             return "{" + ", ".join(fmt(e) for e in x) + "}"
-        return str(x)
+        return f"{x:#x}u" if isinstance(x, int) else str(x)
     return f"{ctype} {name}{dims} = {fmt(body)};\n"
 
 
 def consts_header() -> str:
     """Text of ``ed25519_consts.h``: every constant the kernel reads."""
-    so = [list(e) for e in ref.SMALL_ORDER_ENCODINGS]
+    so = [_limbs32(int.from_bytes(e, "little"), 8)
+          for e in ref.SMALL_ORDER_ENCODINGS]
     return "".join([
         "// Generated by stellar_core_tpu_torch/ops/ed25519_cuda.py from the\n"
         "// port's ed25519 spec copy; do not edit.\n#pragma once\n",
         f"#define ED_N_SMALL_ORDER {len(so)}\n",
-        _arr("__constant__ int32_t", "ED_D", "[10]", fe10(ref.D)),
-        _arr("__constant__ int32_t", "ED_D2", "[10]", fe10(2 * ref.D)),
-        _arr("__constant__ int32_t", "ED_SQRTM1", "[10]", fe10(ref.SQRT_M1)),
-        _arr("__device__ const int32_t", "ED_BTAB", "[16][4][10]", _b_table()),
-        _arr("__constant__ uint8_t", "ED_SMALL_ORDER", f"[{len(so)}][32]", so),
-        _arr("__constant__ uint8_t", "ED_L_BYTES", "[32]",
-             list(ref.L.to_bytes(32, "little"))),
+        _arr("__constant__ uint32_t", "ED_D", "[8]", fe8(ref.D)),
+        _arr("__constant__ uint32_t", "ED_D2", "[8]", fe8(2 * ref.D)),
+        _arr("__constant__ uint32_t", "ED_SQRTM1", "[8]", fe8(ref.SQRT_M1)),
+        _arr("__device__ const uint32_t", "ED_BTAB", "[8][3][8]", _b_table()),
+        _arr("__constant__ uint32_t", "ED_SMALL_ORDER", f"[{len(so)}][8]", so),
+        _arr("__constant__ uint32_t", "ED_L_WORDS", "[8]", _limbs32(ref.L, 8)),
         _arr("__constant__ uint32_t", "ED_POW8", "[64][8]",
              [_limbs32(pow(2, 8 * i, ref.L), 8) for i in range(64)]),
         _arr("__constant__ uint32_t", "ED_LSHIFT", "[14][9]",
@@ -106,12 +101,48 @@ def consts_header() -> str:
 
 @functools.cache
 def build() -> _build.Built:
-    """Build (or reuse) and load the kernel library, once per process."""
+    """Build and load the kernel library, once per process."""
     built = _build.build(KERNEL, SOURCE, {"ed25519_consts.h": consts_header()})
-    fn = built.lib.ed25519_verify_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (built.lib.ed25519_verify_launch, built.lib.ed25519_dsm_launch):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (built.lib.ed25519_verify_threads,
+               built.lib.ed25519_verify_blocks_per_sm):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
     return built
+
+
+def ptxas_stats(log: str, function: str = "ed25519_verify_kernel") -> dict:
+    """Registers, stack frame and spill bytes of ``function`` from an
+    ``nvcc -Xptxas -v`` log."""
+    props, regs, cur, entry = {}, {}, None, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            entry = m[1]
+        elif m := re.search(r"Function properties for (\S+)", ln):
+            cur = m[1]
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", ln):
+            props[cur] = tuple(int(x) for x in m.groups())
+        elif m := re.search(r"Used (\d+) registers", ln):
+            regs[entry] = int(m[1])
+    name = next(k for k in props if function in k)
+    stack, stores, loads = props[name]
+    return {"registers": regs[name], "stack_frame_bytes": stack,
+            "spill_stores": stores, "spill_loads": loads}
+
+
+def launch_shape(rows: int) -> dict:
+    """Threads a block and resident blocks (and warps) per SM of the verify
+    kernel for a launch of ``rows`` rows."""
+    lib = build().lib
+    threads, blocks = (lib.ed25519_verify_threads(rows),
+                       lib.ed25519_verify_blocks_per_sm(rows))
+    if blocks < 0:
+        raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor failed")
+    return {"threads_per_block": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32}
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +154,12 @@ def _as_tensor(x, device) -> torch.Tensor:
         return x
     return torch.as_tensor(np.array(x, dtype=np.uint8, order="C"),
                            device=default_device(device))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads rows as 16-byte vectors: copy a view whose base is
+    not 16-byte aligned (a fresh allocation is)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def verify_batch(pubkeys, sigs, msgs, device=None) -> torch.Tensor:
@@ -151,6 +188,7 @@ def verify_batch(pubkeys, sigs, msgs, device=None) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out
+    pk, sg, mg = _aligned(pk), _aligned(sg), _aligned(mg)
     fn = build().lib.ed25519_verify_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(pk.data_ptr(), sg.data_ptr(), mg.data_ptr(), out.data_ptr(), n,
@@ -159,4 +197,26 @@ def verify_batch(pubkeys, sigs, msgs, device=None) -> torch.Tensor:
         raise RuntimeError(f"ed25519_verify launch failed: cudaError {rc}")
     global launches
     launches += 1
+    return out
+
+
+def double_scalar(a: torch.Tensor, s: torch.Tensor, h: torch.Tensor
+                  ) -> torch.Tensor:
+    """Test-only entry: the encodings of [s]B + [h](-A), (N,32) uint8, for
+    CUDA uint8 tensors A, s, h of shape (N,32) (A a valid encoding, s and h
+    little-endian below 2^254), through the verify kernel's own device
+    functions.  Not on the main path, and not counted in ``launches``."""
+    n = a.shape[0]
+    for t in (a, s, h):
+        if (t.device.type != "cuda" or t.dtype != torch.uint8
+                or t.shape != (n, 32) or not t.is_contiguous()):
+            raise ValueError("double_scalar takes contiguous CUDA uint8 "
+                             "(N, 32) tensors")
+    out = torch.empty((n, 32), dtype=torch.uint8, device=a.device)
+    a, s, h = _aligned(a), _aligned(s), _aligned(h)
+    rc = build().lib.ed25519_dsm_launch(
+        a.data_ptr(), s.data_ptr(), h.data_ptr(), out.data_ptr(), n,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ed25519_dsm launch failed: cudaError {rc}")
     return out

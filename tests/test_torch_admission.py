@@ -1,7 +1,10 @@
 """The port's admission step against the JAX package's, fed identical numpy
 inputs through ``batch_from_numpy``; plus the one-flipped-byte rejection,
 ``multi_validator_tally`` on a seeded 2-level topology, and the
-signature-batch buckets.  Tolerance: exact equality of every boolean."""
+signature-batch buckets, and the pinned small-order divergence from the JAX
+``admission_step``.  Tolerance: exact equality of every boolean."""
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +46,38 @@ def test_admission_step_matches_jax_and_rejects_flipped_byte():
     got_bad = A.admission_step(_from_jax(jbad))
     _assert_same(got_bad, jax.jit(JA.admission_step)(jbad))
     assert not bool(got_bad[0][0]) and got_bad[0][1:].all()
+
+
+def test_small_order_key_divergence_from_jax_admission_step():
+    """A row whose A is the identity encoding (small order) and whose
+    signature is R = [s]B: the cofactorless equation [s]B + [h](-A) = R
+    holds, so only the small-order blacklist refuses it.  The port's
+    ``admission_step`` applies the blacklist (0), as the spec and the JAX
+    ``ops/ed25519_kernel.verify_batch`` do.  The JAX ``admission_step``
+    gives 1: it calls ``_verify_impl`` directly
+    (``stellar_core_tpu/models/admission.py:45``), which lacks the
+    blacklist that ``verify_batch`` adds around it."""
+    from stellar_core_tpu.crypto import ed25519_ref as jref
+    from stellar_core_tpu.ops.ed25519_kernel import verify_batch as jax_vb
+
+    (jb,) = JA.example_batch(n_sigs=8, n_nodes=4)
+    ident = (1).to_bytes(32, "little")
+    assert ident in jref.SMALL_ORDER_ENCODINGS
+    s = int.from_bytes(hashlib.sha512(b"small-order-s").digest(),
+                       "little") % jref.L
+    sig = jref.encode_point(jref.scalar_mult_base(s)) + s.to_bytes(32,
+                                                                  "little")
+    pk, sg = np.asarray(jb.pubkeys).copy(), np.asarray(jb.sigs).copy()
+    pk[0], sg[0] = np.frombuffer(ident, np.uint8), np.frombuffer(sig, np.uint8)
+    jbad = jb._replace(pubkeys=jnp.asarray(pk), sigs=jnp.asarray(sg))
+
+    got = A.admission_step(_from_jax(jbad))[0].numpy()
+    jax_step = np.asarray(jax.jit(JA.admission_step)(jbad)[0])
+    jax_vb_out = np.asarray(jax_vb(pk, sg, np.asarray(jb.msgs)))
+    spec = jref.verify(ident, sig, np.asarray(jb.msgs)[0].tobytes())
+    assert not spec and not got[0] and not jax_vb_out[0]
+    assert jax_step[0]                  # the known divergence
+    assert got[1:].all() and jax_step[1:].all() and jax_vb_out[1:].all()
 
 
 def test_example_batch_is_the_jax_example_batch():

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import edge_vectors
+from chip_smoke import SPECIAL_SCALARS, check_double_scalar, edge_vectors
 from stellar_core_tpu_torch.crypto import ed25519_ref as ref
 from stellar_core_tpu_torch.crypto.sha import sha256
 from stellar_core_tpu_torch.ops import ed25519_cuda
@@ -53,6 +53,37 @@ def test_ed25519_kernel_matches_plain_version_and_spec():
                        host[2][i].tobytes()) for i in range(got.shape[0])]
     assert got.tolist() == want
     assert 0 < sum(want) < len(want)
+
+
+@pytest.mark.cuda
+def test_ed25519_kernel_takes_unaligned_rows():
+    """The kernel reads rows as 16-byte vectors; a contiguous view whose
+    base is not 16-byte aligned is copied by the wrapper, same verdicts."""
+    _need_gpu()
+    cols = _rows()
+    want = ed25519_cuda.verify_batch(*(torch.from_numpy(x).cuda()
+                                       for x in cols))
+    views = []
+    for x in cols:
+        flat = torch.zeros(x.size + 8, dtype=torch.uint8, device="cuda")
+        view = flat[8:].view(x.shape)
+        view.copy_(torch.from_numpy(x))
+        assert view.is_contiguous() and view.data_ptr() % 16 == 8
+        views.append(view)
+    assert torch.equal(ed25519_cuda.verify_batch(*views), want)
+
+
+@pytest.mark.cuda
+def test_double_scalar_entry_matches_spec_on_special_scalars():
+    """The PTX carry chains and the signed recoding on the card: the
+    test-only entry's [s]B + [h](-A) against the spec, not counted as a
+    launch of the verify kernel."""
+    _need_gpu()
+    before = ed25519_cuda.launches
+    n = check_double_scalar(ref, ed25519_cuda, np.random.default_rng(7),
+                            torch.device("cuda"))
+    assert n == 3 * len(SPECIAL_SCALARS)
+    assert ed25519_cuda.launches == before
 
 
 @pytest.mark.cuda

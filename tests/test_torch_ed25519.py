@@ -6,6 +6,7 @@ backend on a seeded mixed batch.  The kernel's generated constants are
 checked against the spec here; the kernel itself runs only on the card
 (tests/test_torch_cuda.py).  Tolerance: exact equality of every verdict."""
 import numpy as np
+import pytest
 import torch
 
 from stellar_core_tpu.crypto import SecretKey, sha256
@@ -95,28 +96,50 @@ def test_decompress_encode_round_trip():
             assert b.tobytes() == e
 
 
-def test_kernel_constants_header_matches_spec():
-    """The generated header's limbs decode back to the spec's values, and
-    every [k]B table entry is the spec's k*B."""
-    def val(limbs):
-        v, shift = 0, 0
-        for i, l in enumerate(limbs):
-            v += l << shift
-            shift += 25 if i & 1 else 26
-        return v
+def _val(words):
+    """Little-endian 32-bit words -> int."""
+    return sum(w << (32 * i) for i, w in enumerate(words))
 
-    for v in (0, 1, ref.D, ref.SQRT_M1, ref.P - 1):
-        assert val(ed25519_cuda.fe10(v)) == v % ref.P
-    tab = ed25519_cuda._b_table()
-    pt = ref.IDENT
-    for k in range(16):
-        x, y, z, t = (val(c) for c in tab[k])
-        assert z == 1 and ref.encode_point((x, y, 1, t)) == \
-            ref.encode_point(pt) and t == x * y % ref.P
-        pt = ref.point_add(pt, ref.to_extended(ref.B))
+
+@pytest.mark.parametrize("v", [0, 1, ref.D, 2 * ref.D, ref.SQRT_M1,
+                               ref.P - 1, ref.P, ref.P + 5])
+def test_kernel_constants_header_matches_spec(v):
+    """The generated header's 8-limb constants decode back to the spec's
+    values (canonical, below p), and every constant the kernel reads is
+    in the header."""
+    words = ed25519_cuda.fe8(v)
+    assert len(words) == 8 and all(0 <= w < 2**32 for w in words)
+    assert _val(words) == v % ref.P
     text = ed25519_cuda.consts_header()
-    for name in ("ED_D", "ED_D2", "ED_SQRTM1", "ED_BTAB", "ED_SMALL_ORDER",
-                 "ED_L_BYTES", "ED_POW8", "ED_LSHIFT", "SHA512_K",
-                 "SHA512_IV"):
+    for name, value in (("ED_D", ref.D), ("ED_D2", 2 * ref.D % ref.P),
+                        ("ED_SQRTM1", ref.SQRT_M1)):
+        body = text.split(f" {name}[8] = {{")[1].split("}")[0]
+        assert _val([int(x.rstrip("u"), 16) for x in body.split(",")]) \
+            == value, name
+    for name in ("ED_BTAB", "ED_SMALL_ORDER", "ED_L_WORDS", "ED_POW8",
+                 "ED_LSHIFT", "SHA512_K", "SHA512_IV"):
         assert f" {name}[" in text, name
 
+
+def test_kernel_niels_table_decodes_to_multiples_of_b():
+    """Entry k-1 of the niels table (y + x, y - x, 2dxy) is the spec's
+    [k]B for k = 1..8."""
+    tab = ed25519_cuda._b_table()
+    assert len(tab) == 8
+    inv2 = pow(2, ref.P - 2, ref.P)
+    pt = ref.IDENT
+    for k in range(1, 9):
+        pt = ref.point_add(pt, ref.to_extended(ref.B))
+        ypx, ymx, xy2d = (_val(c) for c in tab[k - 1])
+        y, x = (ypx + ymx) * inv2 % ref.P, (ypx - ymx) * inv2 % ref.P
+        assert ref.encode_point((x, y, 1, x * y % ref.P)) == \
+            ref.encode_point(pt), k
+        assert xy2d == 2 * ref.D * x * y % ref.P, k
+
+
+def test_double_scalar_entry_takes_only_cuda_tensors():
+    """The test-only double-scalar entry has no plain version to fall back
+    on: CPU tensors raise."""
+    z = torch.zeros((2, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ed25519_cuda.double_scalar(z, z, z)
