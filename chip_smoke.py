@@ -19,14 +19,28 @@ Phases (each prints one JSON line):
                topology (BASELINE config #5); verdicts exact against the
                known forged mask and a recursive host oracle; every kernel
                must have been launched during this phase;
-  5. times   — CUDA-event times (warm-up excluded) with the card's name
-               and power limit, and the verify kernel's bound from the
+  5. scp     — live SCP consensus (BASELINE config #5): 64 port ``SCP``
+               instances on the same topology as XDR quorum sets, each
+               with ``tally_backend="both"`` on the card, nominate and
+               externalize 2 slots over an all-to-all bus; each delivery round's envelope signatures
+               (plus one forged copy) go through the verify kernel as one
+               padded batch.  Every node must externalize one common
+               value per slot, no tensor tally may differ from the host
+               oracle, none may fall back to the host, every forged
+               envelope must be refused, and the kernel must have been
+               launched once per round;
+  6. times   — CUDA-event times (warm-up excluded) with the card's name
+               and power limit: the kernel, ``admission_step``, one
+               recorded live tally call replayed, with the contraction
+               trips, CUDA runtime calls and device kernels of one replay
+               (torch.profiler), and the verify kernel's bound from the
                work that this run's rows need.
 Then the per-kernel JSON line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import subprocess
@@ -43,6 +57,9 @@ N_ORGS, ORG_SIZE = 16, 4   # 64 validators (BASELINE config #5)
 TOP_THR, INNER_THR = 11, 3
 N_CANDIDATES = 64
 REPS = 5
+SCP_SLOTS = 2         # slots the 64-validator network externalizes
+LIVE_REPS = 50        # replays of one recorded live tally call
+MAX_ROUNDS = 10_000   # delivery rounds before a network counts as stuck
 SEED = 20260601
 L = 2**252 + 27742317777372353535851937790883648493
 
@@ -178,6 +195,215 @@ def oracle_tally(qsets, voted, accepted):
     return acc, rat
 
 
+# -- live SCP network (test scaffolding for the scp phase) --------------------
+
+class _NodeDriver:
+    """One validator's SCPDriver: signs each envelope over
+    sha256(ENVELOPE_TYPE_SCP || network id || SCPStatement) as the herder
+    does, puts it on the network's bus, answers ``verify_envelope`` from
+    the verdicts the network primed for its round (an envelope that is in
+    no verified batch raises), and arms its timers on the network's
+    virtual clock."""
+
+    def __init__(self, net, index: int, seed: bytes):
+        self.net, self.index, self.seed = net, index, seed
+        self.node_id = net.public(seed)
+        self._sig_verdicts: dict = {}
+
+    def validate_value(self, slot_index, value, nomination):
+        return self.net.S.ValidationLevel.FULLY_VALIDATED
+
+    def combine_candidates(self, slot_index, candidates):
+        return max(candidates)
+
+    def sign_envelope(self, env) -> None:
+        env.signature = self.net.sign(self.seed, self.net.signed_hash(env))
+        env.__dict__.pop("_xdr_enc", None)   # memoized pre-sign encoding
+
+    def prime_sig_verdicts(self, triple_verdicts) -> None:
+        self._sig_verdicts = dict(triple_verdicts)
+
+    def verify_envelope(self, env) -> bool:
+        return self._sig_verdicts[self.net.sig_triple(env)]
+
+    def emit_envelope(self, env) -> None:
+        self.net.outbox.append((self.index, env))
+
+    def get_qset(self, h):
+        return self.net.qsets.get(h)
+
+    def setup_timer(self, slot_index, timer_id, timeout, cb) -> None:
+        key = (self.index, slot_index, timer_id)
+        self.net.timers.pop(key, None)
+        if cb is not None and timeout > 0:
+            self.net.timers[key] = (self.net.now + timeout, cb)
+
+    def value_externalized(self, slot_index, value) -> None:
+        self.net.externalized.setdefault(slot_index, {})[self.index] = value
+
+
+class Network:
+    """``len(seeds)`` validators of one SCP package on an all-to-all bus.
+
+    ``scp_pkg`` and ``types`` are a package's ``scp`` and ``xdr.types``
+    modules (the port's here; the CPU tests also pass the JAX package's).
+    ``qset_of(make_qset, node_ids)`` gives the one quorum set every node
+    uses.  ``verify(triples)`` returns one verdict per (pubkey, sig,
+    msg32) triple.  A delivery round takes every envelope on the bus,
+    verifies their signatures and one forged copy of one of them (a
+    flipped signature byte) as one batch, primes every node with the
+    verdicts and delivers each envelope to every other node in order; the
+    forged copy must be refused by every node.  When the bus is empty, the
+    virtual clock jumps to the earliest armed timer and fires every timer
+    due then.  Everything runs in a fixed order, so two packages given
+    the same seeds emit the same bytes."""
+
+    def __init__(self, scp_pkg, types, seeds, qset_of, sign, public,
+                 sha256, verify, scp_kwargs):
+        self.S, self.T = scp_pkg, types
+        self.sign, self.public, self.sha256 = sign, public, sha256
+        self.verify = verify
+        network_id = sha256(b"Test SDF Network ; September 2015")
+        self._prefix = types.EnvelopeType.encode(
+            types.EnvelopeType.ENVELOPE_TYPE_SCP) + network_id
+        driver_cls = type("NodeDriver", (_NodeDriver, scp_pkg.SCPDriver), {})
+        self.drivers = [driver_cls(self, i, s) for i, s in enumerate(seeds)]
+        self.qset = qset_of(scp_pkg.make_qset,
+                            [d.node_id for d in self.drivers])
+        self.qsets = {scp_pkg.qset_hash(self.qset): self.qset}
+        self.nodes = [scp_pkg.SCP(d, d.node_id, True, self.qset,
+                                  **scp_kwargs)
+                      for d in self.drivers]
+        self.outbox: list = []
+        self.timers: dict = {}
+        self.now = 0.0
+        self.externalized: dict = {}
+        self.emitted: list = []      # (sender, envelope bytes), in order
+        self.stats = {"rounds": 0, "envelopes": 0, "batch_sizes": [],
+                      "forged_refused": 0, "timers_fired": 0}
+
+    def signed_hash(self, env) -> bytes:
+        return self.sha256(self._prefix + self.T.SCPStatement.encode(
+            env.statement))
+
+    def sig_triple(self, env) -> tuple:
+        return (env.statement.nodeID.value, env.signature,
+                self.signed_hash(env))
+
+    def _forged(self, env):
+        sig = bytearray(env.signature)
+        sig[self.stats["rounds"] % len(sig)] ^= 0x01
+        return self.T.SCPEnvelope.make(statement=env.statement,
+                                       signature=bytes(sig))
+
+    def deliver_round(self) -> None:
+        batch, self.outbox = self.outbox, []
+        forged = self._forged(batch[self.stats["rounds"] % len(batch)][1])
+        triples = [self.sig_triple(env) for _, env in batch]
+        triples.append(self.sig_triple(forged))
+        verdicts = [bool(v) for v in self.verify(triples)]
+        if not all(verdicts[:-1]) or verdicts[-1]:
+            raise AssertionError(f"signature verdicts {verdicts}")
+        for d in self.drivers:
+            d.prime_sig_verdicts(zip(triples, verdicts))
+        for sender, env in batch:
+            self.emitted.append((sender, self.T.SCPEnvelope.encode(env)))
+            for i, node in enumerate(self.nodes):
+                if i != sender:
+                    node.receive_envelope(env)
+        invalid = self.S.EnvelopeState.INVALID
+        for node in self.nodes:
+            if node.receive_envelope(forged) != invalid:
+                raise AssertionError("a forged envelope was accepted")
+            self.stats["forged_refused"] += 1
+        self.stats["rounds"] += 1
+        self.stats["envelopes"] += len(batch)
+        self.stats["batch_sizes"].append(len(triples))
+
+    def fire_timers(self) -> None:
+        self.now = min(t for t, _ in self.timers.values())
+        due = sorted(k for k, (t, _) in self.timers.items() if t == self.now)
+        for key in due:
+            entry = self.timers.pop(key, None)
+            if entry is not None:
+                self.stats["timers_fired"] += 1
+                entry[1]()
+
+    def run_slot(self, slot: int, prev: bytes) -> bytes:
+        """Every node nominates its own value for ``slot``; deliver and
+        fire timers until every node externalized, then drain the bus.
+        Returns the common value (raises if the nodes disagree)."""
+        for i, node in enumerate(self.nodes):
+            node.nominate(slot, self.sha256(b"value-%d-%d" % (slot, i)), prev)
+        done = self.externalized.setdefault(slot, {})
+        while len(done) < len(self.nodes) or self.outbox:
+            if self.stats["rounds"] >= MAX_ROUNDS:
+                raise AssertionError(f"slot {slot} did not externalize")
+            if self.outbox:
+                self.deliver_round()
+            elif self.timers:
+                self.fire_timers()
+            else:
+                raise AssertionError(f"slot {slot} stalled")
+        for key in [k for k in self.timers if k[1] == slot]:
+            del self.timers[key]
+        values = set(done.values())
+        if len(values) != 1:
+            raise AssertionError(f"slot {slot} externalized {len(values)} "
+                                 "different values")
+        return values.pop()
+
+
+def fba_xdr_qset(make_qset, node_ids, org_size=ORG_SIZE, top_thr=TOP_THR,
+                 inner_thr=INNER_THR):
+    """``fba_topology()`` as an XDR qset over ``node_ids``: every org of
+    ``org_size`` consecutive nodes one inner set of ``inner_thr``, and
+    ``top_thr`` of the inner sets."""
+    orgs = [node_ids[o:o + org_size] for o in range(0, len(node_ids),
+                                                    org_size)]
+    return make_qset(top_thr, [], [make_qset(inner_thr, org) for org in orgs])
+
+
+def batch_verifier(verify_batch, pad, device, sizes: list):
+    """``Network.verify`` through ``verify_batch`` on ``device``: one call
+    per round, the batch padded to ``pad(n)`` rows by repeating rows as
+    the overlay does; appends each padded size to ``sizes``."""
+    def verify(triples):
+        n = len(triples)
+        cols = [np.frombuffer(b"".join(t[j] for t in triples),
+                              np.uint8).reshape(n, w)
+                for j, w in enumerate((32, 64, 32))]
+        idx = np.arange(pad(n)) % n
+        sizes.append(idx.size)
+        ok = verify_batch(*(torch.as_tensor(c[idx], device=device)
+                            for c in cols))
+        return ok[:n].cpu().tolist()
+    return verify
+
+
+def run_scp(scp_pkg, types, ref, sha256, verify, n_slots, device,
+            n_orgs=N_ORGS, org_size=ORG_SIZE, top_thr=TOP_THR,
+            inner_thr=INNER_THR):
+    """A ``Network`` of ``n_orgs * org_size`` port validators, node ids
+    the ed25519 public keys of seeded secrets, every node with
+    ``tally_backend="both"`` on ``device``; nominates and externalizes
+    ``n_slots`` slots.  Returns (network, values, seconds per slot)."""
+    rng = np.random.default_rng(SEED)
+    seeds = [rng.bytes(32) for _ in range(n_orgs * org_size)]
+    net = Network(scp_pkg, types, seeds,
+                  functools.partial(fba_xdr_qset, org_size=org_size,
+                                    top_thr=top_thr, inner_thr=inner_thr),
+                  ref.sign, ref.public_from_seed, sha256, verify,
+                  scp_kwargs={"tally_backend": "both", "device": device})
+    values, seconds, prev = [], [], bytes(32)
+    for slot in range(1, n_slots + 1):
+        t0 = time.perf_counter()
+        prev = net.run_slot(slot, prev)
+        seconds.append(time.perf_counter() - t0)
+        values.append(prev)
+    return net, values, seconds
+
+
 def special_scalar_cases(ref, rng):
     """(A encoding, s, h) rows: every special scalar as s, as h and as
     both, beside seeded scalars mod L and seeded keys."""
@@ -273,6 +499,91 @@ def bound_ms_ref10_count(n: int) -> float:
     shares of it compare with the first kernel's; it counts more than
     twice the work the kernel needs, so it is not the bound."""
     return n * 3868 * 100 / 16.7e12 * 1e3
+
+
+class TallyProbe:
+    """While active, counts and times the live tally calls of every
+    ``TallyEngine`` by wrapping the engine class's device and host-oracle
+    methods: calls by kind, seconds in the device part (the copy of the
+    vote rows, the ops and the verdict's readback) and in the host oracle
+    (host clock), and the latest device call with the most voters, as
+    (voters, kind, fn, args) for a replay."""
+
+    _WRAPPED = (("device_accept", "accept"), ("device_ratify", "ratify"),
+                ("_host_accept", None), ("_host_ratify", None))
+
+    def __init__(self, engine_cls):
+        self.cls = engine_cls
+        self.calls = {"accept": 0, "ratify": 0}
+        self.device_seconds = 0.0
+        self.oracle_seconds = 0.0
+        self.widest = None
+        self._saved: dict = {}
+
+    def _wrap(self, real, kind):
+        def wrapped(engine, *args):
+            t0 = time.perf_counter()
+            out = real(engine, *args)
+            dt = time.perf_counter() - t0
+            if kind is None:
+                self.oracle_seconds += dt
+                return out
+            self.device_seconds += dt
+            self.calls[kind] += 1
+            voters = int(args[2][-1].sum())   # the vote row is the last row
+            if self.widest is None or voters >= self.widest[0]:
+                self.widest = (voters, kind, functools.partial(real, engine),
+                               args)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        for name, kind in self._WRAPPED:
+            self._saved[name] = getattr(self.cls, name)
+            setattr(self.cls, name, self._wrap(self._saved[name], kind))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._saved.items():
+            setattr(self.cls, name, real)
+        self._saved.clear()
+
+
+def replay_counts(fn, quorum_ops) -> dict:
+    """What one call of ``fn`` (a recorded live tally call) costs the host:
+    the contraction trips it runs (``quorum_ops._contract_trip`` counted),
+    and from torch.profiler the CUDA runtime calls by name
+    (``cudaLaunchKernel``, copies, synchronizations) and the device-side
+    kernels and copies.  Profiler counts are ``None`` where it saw no CUDA
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    trips = []
+    real = quorum_ops._contract_trip
+
+    def counted(qsets, m):
+        trips.append(1)
+        return real(qsets, m)
+
+    quorum_ops._contract_trip = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+    finally:
+        quorum_ops._contract_trip = real
+    torch.cuda.synchronize()
+    events = prof.events()
+    runtime = collections.Counter(e.name for e in events
+                                  if e.name.startswith("cuda"))
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    copies = sum(1 for n in device if n.startswith(("Memcpy", "Memset")))
+    return {"trips": len(trips), "runtime_calls": dict(runtime) or None,
+            "device_kernels": len(device) - copies if device else None,
+            "device_copies": copies if device else None}
 
 
 def main() -> int:
@@ -388,7 +699,58 @@ def main() -> int:
           "launches": {ed25519_cuda.KERNEL: launches},
           "seconds": main_s, "exact": True})
 
-    # -- 5. times ------------------------------------------------------------
+    # -- 5. live SCP: 64 validators externalize, envelopes through the kernel
+    import stellar_core_tpu_torch.scp as scp_pkg
+    from stellar_core_tpu_torch.scp.tally import TallyEngine, TallyMismatch
+    from stellar_core_tpu_torch.xdr import types as xdr_types
+
+    sizes: list = []
+    verify = batch_verifier(ed25519_cuda.verify_batch, pad_signature_batch,
+                            dev, sizes)
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with TallyProbe(TallyEngine) as probe:
+            net, values, slot_s = run_scp(scp_pkg, xdr_types, ref, sha256,
+                                          verify, SCP_SLOTS, device=dev)
+    except TallyMismatch as e:
+        raise AssertionError(f"tensor tally != host oracle: {e}") from e
+    torch.cuda.synchronize()
+    scp_s = time.perf_counter() - t0
+    scp_launches = ed25519_cuda.launches
+    engines = [s.tally for node in net.nodes for s in node.slots.values()]
+    tallies = sum(e.tensor_tallies for e in engines)
+    fallbacks = sum(e.host_fallbacks for e in engines)
+    calls = probe.calls
+    stats = net.stats
+    if tallies <= 0 or fallbacks or tallies != sum(calls.values()):
+        raise AssertionError(f"tensor tallies {tallies}, host fallbacks "
+                             f"{fallbacks}")
+    if scp_launches < 1 or scp_launches != stats["rounds"]:
+        raise AssertionError(f"{scp_launches} verify launches for "
+                             f"{stats['rounds']} delivery rounds")
+    if stats["forged_refused"] != stats["rounds"] * len(net.nodes):
+        raise AssertionError("a forged envelope was not refused")
+    device_s, oracle_s = probe.device_seconds, probe.oracle_seconds
+    emit({"phase": "scp", "validators": len(net.nodes), "slots": SCP_SLOTS,
+          "externalized": [v.hex() for v in values],
+          "envelopes": stats["envelopes"], "delivery_rounds": stats["rounds"],
+          "timers_fired": stats["timers_fired"],
+          "accept_calls": calls["accept"], "ratify_calls": calls["ratify"],
+          "tensor_tallies": tallies, "host_fallbacks": fallbacks,
+          "tally_mismatches": 0, "verify_batches": len(sizes),
+          "verify_batch_rows": stats["batch_sizes"],
+          "verify_batch_padded": sizes,
+          "launches": {ed25519_cuda.KERNEL: scp_launches},
+          "forged_rows": stats["rounds"],
+          "forged_refusals": stats["forged_refused"],
+          "seconds_per_slot": slot_s, "seconds": scp_s,
+          "tally_device_seconds": device_s, "tally_oracle_seconds": oracle_s,
+          "tally_device_ms_per_call": device_s / tallies * 1e3,
+          "tally_oracle_ms_per_call": oracle_s / tallies * 1e3})
+
+    # -- 6. times ------------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)
@@ -404,6 +766,12 @@ def main() -> int:
                             reps=2)
     step_ms = cuda_ms(lambda: A.admission_step(batch))
     tally_ms = cuda_ms(lambda: A.multi_validator_tally(qt, vt, at))
+    voters, kind, fn, args = probe.widest
+    if voters != len(net.nodes):
+        raise AssertionError(f"no live tally call had all {len(net.nodes)} "
+                             f"validators voting (at most {voters})")
+    live_ms = cuda_ms(lambda: fn(*args), reps=LIVE_REPS)
+    live_counts = replay_counts(lambda: fn(*args), Q)
     t0 = time.perf_counter()
     bound_ms, bound_by, products = bound_ms_verify(
         ref, *(t.cpu().numpy() for t in kin))
@@ -417,6 +785,10 @@ def main() -> int:
           "admission_step_ms": step_ms,
           "admission_real_sigs_per_s": N_ROWS / step_ms * 1e3,
           "multi_validator_tally_ms": tally_ms,
+          "live_tally_ms": live_ms, "live_tally_kind": kind,
+          "live_tally_voters": voters,
+          "live_tally_universe": int(args[2].shape[-1]),
+          "live_tally_replay": live_counts,
           "verify_bound_ms": bound_ms, "bound_by": bound_by,
           "bound_products": products, "bound_seconds": bound_s,
           "verify_share_of_bound": bound_ms / kernel_ms,
@@ -428,7 +800,9 @@ def main() -> int:
         "name": ed25519_cuda.KERNEL, "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519_pallas.py:364",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
+        "launches": launches + scp_launches,
+        "launches_by_path": {"admission": launches, "scp": scp_launches},
+        "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_ms_ref10_count": ref10_ms,
         "registers": ptxas["registers"],

@@ -10,8 +10,13 @@ find:
 - ``ops``     — plain torch tensor ops (field/scalar/SHA-512/quorum math)
                 and the hand-written Hopper kernel for batched ed25519
                 verify (``ops/ed25519_cuda.py`` + ``csrc/ed25519_verify.cu``)
-- ``utils``   — default-device resolution and signature-batch buckets
+- ``utils``   — default-device resolution and signature-batch buckets;
+                copies of ``tracing``, ``lockdep`` and ``logging``
 - ``models``  — the transaction-admission step (verify + quorum tallies)
+- ``xdr``     — a copy of the XDR runtime (pure-Python pack/unpack) and
+                the protocol schema
+- ``scp``     — a copy of the SCP consensus core; its ``tally.py`` runs
+                the federated tallies on a device through ``ops/quorum``
 
 Unlike the JAX package there is no global 64-bit switch: every dtype in the
 port is explicit, so results do not depend on import order.  Entry points

@@ -12,10 +12,12 @@ src/scp/LocalNode.h:58-78).  A 2-level quorum set is the same four tensors:
 
 Member counts are AND-then-sum over the node axis (``sum(dtype=int32)``)
 instead of the JAX module's integer einsums: torch has no integer GEMM on
-CUDA, and these ops run on the card.  The contraction's ``while_loop``
-becomes a fixed N-trip loop (exact: each trip can only drop nodes, so N
-trips reach the fixpoint) with no host sync per trip, and ``vmap`` becomes
-a written-out batch axis.
+CUDA, and these ops run on the card.  ``contract_batch`` keeps the JAX
+module's fixed N trips (a ``fori_loop`` there) with no host sync; the
+``while_loop`` of ``contract_to_maximal_quorum`` / ``federated_ratify``
+stops at the fixpoint, checked on the host after every trip (exact: a trip
+can only drop nodes, so once one changes nothing no later trip does).
+``vmap`` becomes a written-out batch axis.
 """
 from __future__ import annotations
 
@@ -69,6 +71,15 @@ def is_v_blocking(qs: QSetTensor, sets: torch.Tensor) -> torch.Tensor:
     return (avail < thr) & (thr > 0)
 
 
+def _contract_trip(qsets: QSetTensor, m: torch.Tensor) -> torch.Tensor:
+    """One contraction trip: node i stays in row b of ``m`` (B, N) iff its
+    slice is satisfied inside row b."""
+    # node i vs row b: (B, N) through the node-batched qsets
+    sat = is_quorum_slice(qsets, m[:, None, None, :].expand(
+        -1, m.shape[-1], 1, -1))[..., 0]
+    return m & sat
+
+
 def contract_batch(qsets: QSetTensor, members: torch.Tensor) -> torch.Tensor:
     """Greatest-fixpoint contraction of each row: members (B, N) -> (B, N).
 
@@ -78,17 +89,28 @@ def contract_batch(qsets: QSetTensor, members: torch.Tensor) -> torch.Tensor:
     src/herder/QuorumIntersectionCheckerImpl.cpp:407)."""
     m = members
     for _ in range(m.shape[-1]):
-        # node i vs row b: (B, N) through the node-batched qsets
-        sat = is_quorum_slice(qsets, m[:, None, None, :].expand(
-            -1, m.shape[-1], 1, -1))[..., 0]
-        m = m & sat
+        m = _contract_trip(qsets, m)
+    return m
+
+
+def contract_fixpoint(qsets: QSetTensor, members: torch.Tensor
+                      ) -> torch.Tensor:
+    """``contract_batch``'s rows, stopping at the first trip that changed no
+    row, and after N trips at most.  Each trip's check syncs the device
+    with the host."""
+    m = members
+    for _ in range(members.shape[-1]):
+        nxt = _contract_trip(qsets, m)
+        if torch.equal(nxt, m):
+            break
+        m = nxt
     return m
 
 
 def contract_to_maximal_quorum(qsets: QSetTensor,
                                members: torch.Tensor) -> torch.Tensor:
     """Maximal quorum inside ``members`` (N,) -> (N,), all-False if none."""
-    return contract_batch(qsets, members[None, :])[0]
+    return contract_fixpoint(qsets, members[None, :])[0]
 
 
 def is_quorum(local_qs: QSetTensor, qsets: QSetTensor,
@@ -108,8 +130,9 @@ def federated_ratify(local_qs: QSetTensor, qsets: QSetTensor,
                      voted: torch.Tensor) -> torch.Tensor:
     """A quorum that satisfies the local slice voted for each of C
     statements: voted (C, N) -> bool (C,).  ``local_qs`` may carry a
-    leading batch axis V (one local node each) -> bool (V, C)."""
-    q = contract_batch(qsets, voted)                          # (C, N)
+    leading batch axis V (one local node each) -> bool (V, C).  The
+    contraction stops at the fixpoint (``contract_fixpoint``)."""
+    q = contract_fixpoint(qsets, voted)                       # (C, N)
     return q.any(dim=-1) & is_quorum_slice(local_qs, q)
 
 
