@@ -29,7 +29,21 @@ Phases (each prints one JSON line):
                oracle, none may fall back to the host, every forged
                envelope must be refused, and the kernel must have been
                launched once per round;
-  6. times   — CUDA-event times (warm-up excluded) with the card's name
+  6. quorum_intersection — the port's ``check_quorum_intersection``
+               (BASELINE config #3) on three networks: (a) the twisted
+               majority cliques of 16 and 24 nodes through the native,
+               numpy and device tiers, which must agree where they finish
+               (4,003 and 155,039 subproblems); (b) the ``scp`` phase's 64
+               validators as node 0's ``QuorumTracker`` sees them, answered
+               by ``org:native`` and, with the native tier off,
+               ``org:device``; (c) a 1,040-node tiered org network past
+               the native tier's 1,024-node ceiling, with default routing:
+               the device tier under a call budget (an aborted scan, never
+               a false verdict), and with a low threshold a split that the
+               device tier finds.  ``ContractorProbe`` times every device
+               chunk by CUDA events, counts its trips and holds its rows
+               to a numpy fixpoint;
+  7. times   — CUDA-event times (warm-up excluded) with the card's name
                and power limit: the kernel, ``admission_step``, one
                recorded live tally call replayed, with the contraction
                trips, CUDA runtime calls and device kernels of one replay
@@ -59,6 +73,14 @@ N_CANDIDATES = 64
 REPS = 5
 SCP_SLOTS = 2         # slots the 64-validator network externalizes
 LIVE_REPS = 50        # replays of one recorded live tally call
+QI_CLIQUES = (16, 24)     # twisted majority cliques (BASELINE config #3)
+QI_CLIQUE_SCANNED = {16: 4003, 24: 155039}   # the JAX package's counts
+QI_MAX_SECONDS = 60       # budget of each tier on a clique
+QI_ORGS, QI_CORE_ORGS, QI_LISTED = 260, 10, 250   # 1,040 nodes, each
+                                                  # listing 1,000
+QI_MAX_CALLS = 30_000     # subproblems of the 1,040-node scan
+FP32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
 MAX_ROUNDS = 10_000   # delivery rounds before a network counts as stuck
 SEED = 20260601
 L = 2**252 + 27742317777372353535851937790883648493
@@ -402,6 +424,346 @@ def run_scp(scp_pkg, types, ref, sha256, verify, n_slots, device,
         seconds.append(time.perf_counter() - t0)
         values.append(prev)
     return net, values, seconds
+
+
+# -- quorum-intersection networks --------------------------------------------
+
+def clique_ids(n: int) -> list:
+    """Node ids of the quorum tier bench's cliques."""
+    return [b"%02d" % i + b"\x00" * 30 for i in range(n)]
+
+
+def twisted_clique(make_qset, node_ids) -> dict:
+    """The quorum tier bench's twisted majority clique: node i lists every
+    node but node i + 1 (cyclically) with threshold 2n/3 + 1, so that no
+    two members share a qset and the org reduction cannot fire."""
+    n = len(node_ids)
+    thr = 2 * n // 3 + 1
+    qmap = {}
+    for i, x in enumerate(node_ids):
+        members = [v for j, v in enumerate(node_ids) if j != (i + 1) % n]
+        qmap[x] = make_qset(min(thr, len(members)), members, [])
+    return qmap
+
+
+def tiered_orgs(make_qset, node_ids, top_thr, n_core=QI_CORE_ORGS,
+                listed=QI_LISTED, org_size=ORG_SIZE,
+                inner_thr=INNER_THR) -> dict:
+    """Orgs of ``org_size`` consecutive nodes, each an inner set of
+    ``inner_thr``; the last ``n_core`` orgs are the core, which every node
+    lists.  Every qset lists ``listed`` orgs (at most 1,000 validators,
+    the most a sane qset holds) and needs ``top_thr`` of them: a core node
+    the core and the first other orgs; member j of another org o the core,
+    its own org and the orgs that follow o + j, so that the members of an
+    org differ and the org reduction cannot fire."""
+    n_orgs = len(node_ids) // org_size
+    orgs = [make_qset(inner_thr, node_ids[o * org_size:(o + 1) * org_size])
+            for o in range(n_orgs)]
+    outer = n_orgs - n_core
+    core = orgs[outer:]
+    qmap = {}
+    for o in range(n_orgs):
+        for j in range(org_size):
+            if o >= outer:
+                lists = core + orgs[:listed - n_core]
+            else:
+                lists = core + [orgs[o]] + [
+                    orgs[(o + d) % outer]
+                    for d in range(1 + j, listed - n_core + j)]
+            qmap[node_ids[o * org_size + j]] = make_qset(top_thr, [], lists)
+    return qmap
+
+
+def numpy_fixpoint_form(scc, qmap):
+    """The 2-level qsets of the nodes ``scc`` restricted to ``scc`` as
+    float64 arrays, each distinct (threshold, members) element once: the
+    members (U, N), thresholds (U,), how often each node lists each
+    element (U, N) and the top thresholds (N,).  A validator listed twice
+    counts once, an inner set listed twice twice, as in the dense form."""
+    col = {v: i for i, v in enumerate(scc)}
+    elems: dict = {}
+    listings = []
+    top = np.zeros(len(scc))
+    for i, node in enumerate(scc):
+        qset = qmap[node]
+        top[i] = qset.threshold
+        keys = [(1, (c,)) for c in sorted({col[v.value] for v in
+                                           qset.validators
+                                           if v.value in col})]
+        keys += [(s.threshold, tuple(sorted({col[v.value]
+                                             for v in s.validators
+                                             if v.value in col})))
+                 for s in qset.innerSets]
+        listings += [(elems.setdefault(k, len(elems)), i) for k in keys]
+    mem = np.zeros((max(len(elems), 1), len(scc)))
+    thr = np.ones(mem.shape[0])
+    for (t, cols), e in elems.items():
+        thr[e] = t
+        mem[e, list(cols)] = 1
+    use = np.zeros_like(mem)
+    for e, i in listings:
+        use[e, i] += 1
+    return mem, thr, use, top
+
+
+def numpy_fixpoint(form, m):
+    """Greatest-fixpoint contraction of the bool rows ``m`` (B, N) on the
+    host: node i stays while its listed elements satisfied inside the row
+    reach its top threshold."""
+    mem, thr, use, top = form
+    while True:
+        sat = (m.astype(np.float64) @ mem.T >= thr) & (thr > 0)
+        nxt = m & (sat.astype(np.float64) @ use >= top)
+        if (nxt == m).all():
+            return nxt
+        m = nxt
+
+
+def chunk_bound_ms(rows: int, n: int, u: int, trips: int) -> float:
+    """Least time the H100 could take for one ``contract_shared`` chunk of
+    ``rows`` rows over N nodes and U distinct elements that ran ``trips``
+    trips: the larger of its products' float32 operations (2·rows·N·U for
+    the counts and as many for the listings, a trip) over 67 TFLOP/s and
+    its bytes (the float32 element members and listings and thresholds
+    read once, the bool rows read and written once) over 3.35 TB/s."""
+    ops = trips * 4 * rows * n * u
+    nbytes = 4 * (2 * u * n + u + n) + 2 * rows * n
+    return max(ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+class ContractorProbe:
+    """While active, wraps the checker's ``_Contractor._eval`` and the
+    quorum ops' ``contract_shared`` / ``_shared_trip``: every device
+    chunk is timed by CUDA events, its trips counted and its bound
+    computed, and every device evaluation's rows are held to
+    ``numpy_fixpoint`` of the same rows (mismatching rows counted).  The
+    package has no timers of its own."""
+
+    def __init__(self, qi, quorum_ops):
+        self.qi, self.ops = qi, quorum_ops
+        self._saved: dict = {}
+        self._forms: dict = {}
+        self.reset()
+
+    def reset(self) -> None:
+        self.evals = self.rows = self.mismatches = 0
+        self.chunk_ms: list = []
+        self.chunk_trips: list = []
+        self.chunk_rows: list = []
+        self.chunk_bound_ms: list = []
+        self.devices: set = set()
+        self.widths: set = set()   # (N, K dense inner slots, U elements)
+        self.check_seconds = 0.0
+        self._trips = 0
+
+    def stats(self) -> dict:
+        ms = self.chunk_ms
+        return {"evals": self.evals, "rows": self.rows,
+                "chunks": len(ms), "chunk_rows_max": max(self.chunk_rows,
+                                                          default=0),
+                "ms_per_chunk": sum(ms) / len(ms) if ms else None,
+                "ms_per_chunk_max": max(ms, default=None),
+                "trips_per_chunk": (sum(self.chunk_trips) / len(ms)
+                                    if ms else None),
+                "trips_per_chunk_max": max(self.chunk_trips, default=None),
+                "bound_ms_per_chunk": (sum(self.chunk_bound_ms) / len(ms)
+                                       if ms else None),
+                "share_of_bound": (sum(self.chunk_bound_ms) / sum(ms)
+                                   if ms else None),
+                "device_ms": sum(ms), "devices": sorted(self.devices),
+                "n_k_u": sorted(self.widths),
+                "mismatched_rows": self.mismatches,
+                "check_seconds": self.check_seconds}
+
+    def __enter__(self):
+        cls, ops = self.qi._Contractor, self.ops
+        real_eval, real_chunk = cls._eval, ops.contract_shared
+        real_trip = ops._shared_trip
+        self._saved = {(cls, "_eval"): real_eval,
+                       (ops, "contract_shared"): real_chunk,
+                       (ops, "_shared_trip"): real_trip}
+
+        def trip(ss, m):
+            self._trips += 1
+            return real_trip(ss, m)
+
+        def chunk(ss, members):
+            self._trips = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_chunk(ss, members)
+            end.record()
+            end.synchronize()
+            self.chunk_ms.append(start.elapsed_time(end))
+            self.chunk_trips.append(self._trips)
+            self.chunk_rows.append(int(members.shape[0]))
+            self.chunk_bound_ms.append(chunk_bound_ms(
+                int(members.shape[0]), ss.mem.shape[1], ss.mem.shape[0],
+                self._trips))
+            return out
+
+        def evaluate(contractor, m):
+            out = real_eval(contractor, m)
+            if contractor.use_device:
+                t0 = time.perf_counter()
+                self.evals += 1
+                self.rows += m.shape[0]
+                self.devices.add(str(contractor.device))
+                self.widths.add((contractor.n, contractor.inner_mem.shape[1],
+                                 contractor._shared.mem.shape[0]))
+                key = id(contractor)
+                if key not in self._forms:
+                    self._forms[key] = (contractor, numpy_fixpoint_form(
+                        contractor.scc, contractor.qmap))
+                want = numpy_fixpoint(self._forms[key][1], m)
+                self.mismatches += int((out != want).any(axis=1).sum())
+                self.check_seconds += time.perf_counter() - t0
+            return out
+
+        cls._eval, ops.contract_shared, ops._shared_trip = (evaluate, chunk,
+                                                            trip)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), real in self._saved.items():
+            setattr(owner, name, real)
+        self._saved.clear()
+        self._forms.clear()
+
+
+def qi_result(res, seconds) -> dict:
+    return {"ok": res.ok, "scanned": res.scanned, "aborted": res.aborted,
+            "tier": res.tier, "scc_size": res.scc_size, "seconds": seconds,
+            "subproblems_per_s": res.scanned / seconds if seconds else None}
+
+
+def run_qi(qi, qmap, **kw):
+    """``check_quorum_intersection(qmap, **kw)`` on the host clock."""
+    t0 = time.perf_counter()
+    res = qi.check_quorum_intersection(qmap, **kw)
+    return res, time.perf_counter() - t0
+
+
+def check_split(qi, local_node, qmap, res) -> dict:
+    """The two quorums of a split verdict: each a quorum (``_contract_host``
+    keeps it whole and every member's slice is in it), and disjoint."""
+    a, b = res.split
+    for side in (a, b):
+        if not side or qi._contract_host(side, qmap) != side or not all(
+                local_node.is_quorum_slice(qmap[x], side) for x in side):
+            raise AssertionError("a side of the split is not a quorum")
+    if a & b:
+        raise AssertionError("the split's quorums intersect")
+    return {"quorum_sizes": [len(a), len(b)], "disjoint": True}
+
+
+def quorum_intersection_phase(net, dev) -> list:
+    """The ``quorum_intersection`` phase's three networks; returns the
+    lines to print.  Raises on any failed check."""
+    from stellar_core_tpu_torch import native
+    from stellar_core_tpu_torch.herder import quorum_intersection as QI
+    from stellar_core_tpu_torch.herder.quorum_tracker import QuorumTracker
+    from stellar_core_tpu_torch.ops import quorum as Q
+    from stellar_core_tpu_torch.scp import local_node as LN
+
+    t0 = time.perf_counter()
+    native.get_lib()       # g++, outside the native tier's timed scans
+    lines = [{"phase": "quorum_intersection", "native_build_seconds":
+              time.perf_counter() - t0}]
+    tiers = (("native", {"use_native": True, "use_device": False}),
+             ("numpy", {"use_native": False, "use_device": False}),
+             ("device", {"use_native": False, "use_device": True,
+                         "device": dev}))
+    # (a) BASELINE config #3: the twisted majority cliques
+    for n in QI_CLIQUES:
+        qmap = twisted_clique(LN.make_qset, clique_ids(n))
+        row = {"phase": "quorum_intersection", "network": "clique",
+               "scc_size": n}
+        for label, kw in tiers:
+            with ContractorProbe(QI, Q) as probe:
+                res, secs = run_qi(QI, qmap, max_seconds=QI_MAX_SECONDS,
+                                   **kw)
+            row[label] = qi_result(res, secs)
+            if label == "device":
+                row[label]["probe"] = probe.stats()
+                if probe.mismatches or probe.devices != {str(dev)}:
+                    raise AssertionError(f"device chunks: {probe.stats()}")
+            if res.aborted:
+                if res.ok is not None:
+                    raise AssertionError(f"{label} aborted with a verdict")
+            elif res.ok is not True or res.scanned != QI_CLIQUE_SCANNED[n] \
+                    or res.tier != label:
+                raise AssertionError(f"{label} at {n} nodes: ok={res.ok}, "
+                                     f"scanned={res.scanned}, {res.tier}")
+        lines.append(row)
+
+    # (b) the live network as node 0's tracker sees it
+    qsets = {d.node_id: net.qset for d in net.drivers}
+    tracker = QuorumTracker(net.drivers[0].node_id, net.qset)
+    tracker.rebuild(qsets.get, net.qset)
+    qmap = tracker.qset_map()
+    if set(qmap) != set(qsets):
+        raise AssertionError("the tracker does not see every validator")
+    row = {"phase": "quorum_intersection", "network": "live",
+           "validators": len(qmap)}
+    for label, kw, want in (("default", {}, "org:native"),
+                            ("no_native", {"use_native": False},
+                             "org:device")):
+        with ContractorProbe(QI, Q) as probe:
+            res, secs = run_qi(QI, qmap, **kw)
+        row[label] = qi_result(res, secs)
+        row[label]["probe"] = probe.stats()
+        if res.ok is not True or res.tier != want or probe.mismatches:
+            raise AssertionError(f"live network, {label}: ok={res.ok}, "
+                                 f"{res.tier}, {probe.stats()}")
+        if want == "org:device" and probe.devices != {str(dev)}:
+            raise AssertionError(f"org:device ran on {probe.devices}")
+    lines.append(row)
+
+    # (c) past the native ceiling: 1,040 nodes, default routing
+    ids = [i.to_bytes(32, "big") for i in range(QI_ORGS * ORG_SIZE)]
+    for label, top_thr in (("wide", 2 * QI_LISTED // 3 + 1), ("wide_split",
+                                                              2)):
+        t0 = time.perf_counter()
+        qmap = tiered_orgs(LN.make_qset, ids, top_thr)
+        build_s = time.perf_counter() - t0
+        declined = []
+        real_native = QI._check_native
+
+        def native(contractor, *args):
+            t1 = time.perf_counter()
+            out = real_native(contractor, *args)
+            declined.append((out is None, time.perf_counter() - t1))
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        QI._check_native = native
+        try:
+            with ContractorProbe(QI, Q) as probe:
+                res, secs = run_qi(QI, qmap, max_calls=QI_MAX_CALLS)
+        finally:
+            QI._check_native = real_native
+        row = {"phase": "quorum_intersection", "network": label,
+               "nodes": len(qmap), "top_threshold": top_thr,
+               "listed_orgs": QI_LISTED, "max_calls": QI_MAX_CALLS,
+               "build_seconds": build_s, "native_declined": declined,
+               **qi_result(res, secs), "probe": probe.stats(),
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if not probe.chunk_ms or probe.mismatches or \
+                [d for d, _ in declined] != [True] \
+                or res.tier != "device" or res.scc_size != len(qmap):
+            raise AssertionError(f"{label}: {row}")
+        if label == "wide":
+            if res.ok is not None or not res.aborted:
+                raise AssertionError(f"wide: ok={res.ok}, aborted="
+                                     f"{res.aborted} under the budget")
+        else:
+            if res.ok is not False or res.aborted:
+                raise AssertionError(f"wide_split: ok={res.ok}")
+            row["split"] = check_split(QI, LN, qmap, res)
+        lines.append(row)
+    return lines
 
 
 def special_scalar_cases(ref, rng):
@@ -750,7 +1112,14 @@ def main() -> int:
           "tally_device_ms_per_call": device_s / tallies * 1e3,
           "tally_oracle_ms_per_call": oracle_s / tallies * 1e3})
 
-    # -- 6. times ------------------------------------------------------------
+    # -- 6. quorum intersection ---------------------------------------------
+    t0 = time.perf_counter()
+    for line in quorum_intersection_phase(net, dev):
+        emit(line)
+    emit({"phase": "quorum_intersection", "seconds":
+          time.perf_counter() - t0})
+
+    # -- 7. times ------------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)

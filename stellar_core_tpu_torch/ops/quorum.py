@@ -10,14 +10,23 @@ src/scp/LocalNode.h:58-78).  A 2-level quorum set is the same four tensors:
   - ``inner_thr`` (K,)   int32 — inner thresholds (0 => padding slot, never
                                   satisfied, never counts)
 
-Member counts are AND-then-sum over the node axis (``sum(dtype=int32)``)
-instead of the JAX module's integer einsums: torch has no integer GEMM on
-CUDA, and these ops run on the card.  ``contract_batch`` keeps the JAX
-module's fixed N trips (a ``fori_loop`` there) with no host sync; the
-``while_loop`` of ``contract_to_maximal_quorum`` / ``federated_ratify``
-stops at the fixpoint, checked on the host after every trip (exact: a trip
-can only drop nodes, so once one changes nothing no later trip does).
-``vmap`` becomes a written-out batch axis.
+Member counts are the JAX module's einsums as float32 products of 0/1
+values (``_counts``): torch has no integer GEMM on CUDA, and a float32 sum
+of 0/1 values is exact while it stays below 2^24, far above any node count.
+The products never allocate more than the JAX einsums' (B, N, K); one
+unbatched qset (the live tally's local node) ANDs and sums (S, K, N)
+instead, which costs the card's host less at those sizes.
+``contract_batch`` keeps the JAX module's fixed N trips (a ``fori_loop``
+there) with no host sync; the ``while_loop`` of
+``contract_to_maximal_quorum`` / ``federated_ratify`` stops at the
+fixpoint, checked on the host after every trip (exact: a trip can only drop
+nodes, so once one changes nothing no later trip does).  ``vmap`` becomes a
+written-out batch axis.
+
+``SharedSets`` / ``contract_shared`` are the quorum-intersection scan's
+form of the same contraction: every distinct (threshold, members) element
+of the node-batched qsets is counted once per row, and each node adds up
+the elements its qset lists, which gives ``contract_batch``'s rows.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch
 from ..utils.device import default_device
 
 I32 = torch.int32
+F32 = torch.float32
 
 
 class QSetTensor(NamedTuple):
@@ -46,13 +56,44 @@ def local_qset(qt: QSetTensor, i: int) -> QSetTensor:
                       qt.inner_thr[i])
 
 
+def _members(qs: QSetTensor) -> torch.Tensor:
+    """The top-level validators as row 0 above the K inner sets: bool
+    (..., K + 1, N), so that one product counts all of them."""
+    return torch.cat([qs.top_mem[..., None, :], qs.inner_mem], dim=-2)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 even inside an autocast region, where it would
+    come out in bf16 or fp16 (integers exact only to 256 and 2,048)."""
+    if torch.is_autocast_enabled(a.device.type):
+        with torch.autocast(a.device.type, enabled=False):
+            return a @ b
+    return a @ b
+
+
+def _counts(sets: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+    """Members of each row of ``mem`` in each set: sets bool (..., S, N),
+    mem bool (..., R, N) -> float32 (..., S, R).  A float32 product of 0/1
+    values: exact integers below 2^24, so that comparing them with the
+    int32 thresholds is exact."""
+    return _matmul(sets.to(F32), mem.to(F32).transpose(-1, -2))
+
+
 def _hits(qs: QSetTensor, sets: torch.Tensor) -> torch.Tensor:
     """#top-level members (validators + inner sets) satisfied by each set.
 
-    sets: bool (..., S, N); returns int32 (..., S)."""
-    top = (qs.top_mem[..., None, :] & sets).sum(dim=-1, dtype=I32)
-    inner_ct = (qs.inner_mem[..., None, :, :] & sets[..., :, None, :]).sum(
-        dim=-1, dtype=I32)                                    # (..., S, K)
+    sets: bool (..., S, N); returns int32 (..., S).  One qset (the live
+    tally's local node) ANDs and sums (..., S, K, N), which costs the
+    card's host less than a product at those sizes; a batch of qsets takes
+    one product, since broadcasting the AND would build (..., S, K, N) for
+    every qset of the batch."""
+    if qs.top_mem.dim() == 1:
+        top = (qs.top_mem & sets).sum(dim=-1, dtype=I32)
+        inner_ct = (qs.inner_mem & sets[..., :, None, :]).sum(dim=-1,
+                                                               dtype=I32)
+    else:
+        ct = _counts(sets, _members(qs)).to(I32)          # (..., S, K + 1)
+        top, inner_ct = ct[..., 0], ct[..., 1:]
     thr = qs.inner_thr[..., None, :]
     inner_ok = (inner_ct >= thr) & (thr > 0)
     return top + inner_ok.sum(dim=-1, dtype=I32)
@@ -73,11 +114,14 @@ def is_v_blocking(qs: QSetTensor, sets: torch.Tensor) -> torch.Tensor:
 
 def _contract_trip(qsets: QSetTensor, m: torch.Tensor) -> torch.Tensor:
     """One contraction trip: node i stays in row b of ``m`` (B, N) iff its
-    slice is satisfied inside row b."""
-    # node i vs row b: (B, N) through the node-batched qsets
-    sat = is_quorum_slice(qsets, m[:, None, None, :].expand(
-        -1, m.shape[-1], 1, -1))[..., 0]
-    return m & sat
+    slice is satisfied inside row b (the JAX ``in,bn->bi`` and
+    ``ikn,bn->bik`` einsums)."""
+    b, n = m.shape
+    ct = _counts(m, _members(qsets).reshape(-1, n)).reshape(b, n, -1)
+    top, inner_ct = ct[..., 0], ct[..., 1:]                 # (B, N), (B, N, K)
+    thr = qsets.inner_thr[None]                             # (1, N, K)
+    hits = top + ((inner_ct >= thr) & (thr > 0)).sum(dim=-1, dtype=I32)
+    return m & (hits >= qsets.top_thr[None])
 
 
 def contract_batch(qsets: QSetTensor, members: torch.Tensor) -> torch.Tensor:
@@ -120,6 +164,68 @@ def is_quorum(local_qs: QSetTensor, qsets: QSetTensor,
     local node's slice.  Returns a 0-d bool tensor."""
     q = contract_to_maximal_quorum(qsets, members)
     return q.any() & is_quorum_slice(local_qs, q[None, :])[0]
+
+
+class SharedSets(NamedTuple):
+    """Node-batched 2-level qsets with each distinct element once: a
+    top-level validator v is the element ({v}, 1), an inner set with a
+    threshold above 0 the element (members, threshold); padding never
+    counts, so it has no element."""
+
+    mem: torch.Tensor      # float32 (U, N): the members of each element
+    thr: torch.Tensor      # float32 (U,): its threshold
+    use: torch.Tensor      # float32 (U, N): how often node i's qset lists it
+    top_thr: torch.Tensor  # float32 (N,): each node's top-level threshold
+
+
+def shared_sets(qsets, node_ids, device) -> SharedSets:
+    """``SharedSets`` of python quorum sets ``(threshold, validators,
+    inner_sets)`` over the ordered universe ``node_ids`` (as
+    ``build_qset_tensor`` takes them), on ``device``.  Counts as the
+    dense form does: a validator listed twice is one member, an inner set
+    listed twice counts twice."""
+    idx = {v: i for i, v in enumerate(node_ids)}
+    n = len(node_ids)
+    elems: dict = {}   # (threshold, member columns) -> element row
+    uses = []          # (element row, node column), one per listing
+    top_thr = np.zeros(n, np.float32)
+    for i, (thr, vals, inners) in enumerate(qsets):
+        top_thr[i] = thr
+        keys = [(1, (j,)) for j in sorted({idx[v] for v in vals})]
+        keys += [(t, tuple(sorted({idx[v] for v in vs})))
+                 for t, vs in inners if t > 0]
+        uses += [(elems.setdefault(key, len(elems)), i) for key in keys]
+    u = max(len(elems), 1)
+    mem = np.zeros((u, n), np.float32)
+    thr = np.ones(u, np.float32)
+    for (t, cols), e in elems.items():
+        thr[e] = t
+        mem[e, list(cols)] = 1
+    use = np.zeros((u, n), np.float32)
+    if uses:
+        np.add.at(use, tuple(np.array(uses).T), 1)
+    return SharedSets(*(torch.as_tensor(a, device=device)
+                        for a in (mem, thr, use, top_thr)))
+
+
+def _shared_trip(ss: SharedSets, m: torch.Tensor) -> torch.Tensor:
+    """``_contract_trip`` through the distinct elements: (B, N) @ (N, U)
+    counts, the (B, U) satisfied elements, and (B, U) @ (U, N) each
+    node's satisfied listings; float32 products of small integers, exact."""
+    sat = (_matmul(m.to(F32), ss.mem.T) >= ss.thr).to(F32)       # (B, U)
+    return m & (_matmul(sat, ss.use) >= ss.top_thr)            # (B, N)
+
+
+def contract_shared(ss: SharedSets, members: torch.Tensor) -> torch.Tensor:
+    """``contract_fixpoint``'s rows for the qsets of ``ss``: members (B, N)
+    -> (B, N), stopping at the first trip that changed no row."""
+    m = members
+    for _ in range(members.shape[-1]):
+        nxt = _shared_trip(ss, m)
+        if torch.equal(nxt, m):
+            break
+        m = nxt
+    return m
 
 
 # ---------------------------------------------------------------------------
