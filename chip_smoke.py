@@ -43,7 +43,24 @@ Phases (each prints one JSON line):
                device tier finds.  ``ContractorProbe`` times every device
                chunk by CUDA events, counts its trips and holds its rows
                to a numpy fixpoint;
-  7. times   — CUDA-event times (warm-up excluded) with the card's name
+  7. node    — BASELINE config #1 on the port alone: a standalone node
+               (``Application``, ``CRYPTO_BACKEND="cuda"``, tallies
+               ``"tensor"``, the node's default parallel apply, pipelined
+               close and native tiers) seeds 1,000 accounts in one close,
+               closes 3 ledgers of 1,000 one-signature payments through
+               ``recv_transaction`` and ``manual_close()``, then a peer's
+               1,000-payment set with every 100th signature forged through
+               ``close_ledger``; node B, on the ``"cpu"`` backend, gets the
+               same envelopes.  Every close launches the verify kernel once
+               (1,000 rows padded to 1,024), its verdicts answer every
+               signature (no host verify in the close), every payment is
+               ``txSUCCESS`` and every forged one ``txBAD_AUTH``; A equals
+               B in ledger hash, bucket-list hash and meta bytes after every
+               close; the native libraries built and served the closes.
+               Per close: the phases' ms, the verify phase's dispatch /
+               host-wait split, signing and admission seconds; one close's
+               batch replayed by CUDA events;
+  8. times   — CUDA-event times (warm-up excluded) with the card's name
                and power limit: the kernel, ``admission_step``, one
                recorded live tally call replayed, with the contraction
                trips, CUDA runtime calls and device kernels of one replay
@@ -82,6 +99,12 @@ QI_MAX_CALLS = 30_000     # subproblems of the 1,040-node scan
 FP32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 MAX_ROUNDS = 10_000   # delivery rounds before a network counts as stuck
+NODE_ACCOUNTS = 1000      # BASELINE config #1: 1k-payment TxSetFrame
+NODE_CREATE_OPS = 100     # CREATE_ACCOUNT ops in each seeding transaction
+NODE_CLOSES = 3           # closes of one payment per account
+NODE_FORGE_EVERY = 100    # every 100th payment of the forged set forged
+NODE_PHASES = ("prefetch", "verify", "fee", "plan", "apply", "hash",
+               "bucket", "stage", "commit", "meta", "total")
 SEED = 20260601
 L = 2**252 + 27742317777372353535851937790883648493
 
@@ -766,6 +789,452 @@ def quorum_intersection_phase(net, dev) -> list:
     return lines
 
 
+# -- the standalone node (BASELINE config #1) ---------------------------------
+
+class Account:
+    """A port node's account: a keypair whose next sequence number is read
+    from the node's ledger, with the op and envelope builders of
+    ``tests/txtest.py``'s ``TestAccount`` that a node's traffic needs."""
+
+    def __init__(self, app, secret):
+        self.app, self.secret = app, secret
+        self.account_id = secret.public_key().raw
+
+    @classmethod
+    def root(cls, app) -> "Account":
+        """The genesis root account, whose seed is the network id."""
+        from stellar_core_tpu_torch.crypto import SecretKey
+        return cls(app, SecretKey(app.config.network_id()))
+
+    @classmethod
+    def named(cls, app, name: bytes) -> "Account":
+        from stellar_core_tpu_torch.crypto import SecretKey, sha256
+        return cls(app, SecretKey(sha256(name)))
+
+    def next_seq(self) -> int:
+        from stellar_core_tpu_torch.ledger import LedgerTxn
+        with LedgerTxn(self.app.ledger_manager.root) as ltx:
+            entry = ltx.load_account(self.account_id)
+            ltx.rollback()
+        return (entry.data.value.seqNum if entry is not None else 0) + 1
+
+    def op_create_account(self, dest: bytes, balance: int):
+        from stellar_core_tpu_torch.xdr import types as T
+        return T.Operation.make(sourceAccount=None, body=T.OperationBody.make(
+            T.OperationType.CREATE_ACCOUNT, T.CreateAccountOp.make(
+                destination=T.account_id(dest), startingBalance=balance)))
+
+    def op_payment(self, dest: bytes, amount: int):
+        from stellar_core_tpu_torch.transactions import utils as U
+        from stellar_core_tpu_torch.xdr import types as T
+        return T.Operation.make(sourceAccount=None, body=T.OperationBody.make(
+            T.OperationType.PAYMENT, T.PaymentOp.make(
+                destination=T.muxed_account(dest), asset=U.asset_native(),
+                amount=amount)))
+
+    def tx(self, ops, fee=None, seq=None):
+        """A v1 envelope of ``ops`` signed by this account's key."""
+        from stellar_core_tpu_torch.crypto import sha256
+        from stellar_core_tpu_torch.transactions.signature_checker import \
+            signature_hint
+        from stellar_core_tpu_torch.xdr import types as T
+        tx = T.Transaction.make(
+            sourceAccount=T.muxed_account(self.account_id),
+            fee=fee if fee is not None else 100 * len(ops),
+            seqNum=seq if seq is not None else self.next_seq(),
+            cond=T.Preconditions.make(T.PreconditionType.PRECOND_NONE),
+            memo=T.MEMO_NONE_VALUE, operations=ops,
+            ext=T.Transaction.fields[6][1].make(0))
+        payload = T.TransactionSignaturePayload.make(
+            networkId=self.app.config.network_id(),
+            taggedTransaction=T.TransactionSignaturePayload.fields[1][1].make(
+                T.EnvelopeType.ENVELOPE_TYPE_TX, tx))
+        h = sha256(T.TransactionSignaturePayload.encode(payload))
+        sig = T.DecoratedSignature.make(hint=signature_hint(self.account_id),
+                                        signature=self.secret.sign(h))
+        return T.TransactionEnvelope.make(
+            T.EnvelopeType.ENVELOPE_TYPE_TX,
+            T.TransactionV1Envelope.make(tx=tx, signatures=[sig]))
+
+
+def forge_envelope(env):
+    """A copy of ``env`` with one flipped byte in its first signature."""
+    from stellar_core_tpu_torch.xdr import types as T
+    v1 = env.value
+    ds = v1.signatures[0]
+    sig = bytearray(ds.signature)
+    sig[7] ^= 0x01
+    forged = T.DecoratedSignature.make(hint=ds.hint, signature=bytes(sig))
+    return T.TransactionEnvelope.make(
+        T.EnvelopeType.ENVELOPE_TYPE_TX, T.TransactionV1Envelope.make(
+            tx=v1.tx, signatures=[forged] + list(v1.signatures[1:])))
+
+
+def node_app(crypto_backend: str, device=None, max_tx_set=NODE_ACCOUNTS):
+    """A started port standalone node (``test_config``: MANUAL_CLOSE, an
+    in-memory database, the virtual clock) with the node's default
+    parallel apply, pipelined close, invariants and native settings and
+    ``max_tx_set`` operations a ledger.  ``crypto_backend="cuda"`` runs
+    the close's signature batch and the SCP tallies on ``device``;
+    ``"cpu"`` is the host reference node."""
+    from stellar_core_tpu_torch.main import Application, Config, test_config
+    from stellar_core_tpu_torch.utils.clock import ClockMode, VirtualClock
+
+    node_defaults = Config()
+    cfg = test_config(
+        CRYPTO_BACKEND=crypto_backend,
+        SCP_TALLY_BACKEND="tensor" if crypto_backend == "cuda" else "host",
+        TESTING_UPGRADE_MAX_TX_SET_SIZE=max_tx_set,
+        PARALLEL_APPLY_WORKERS=node_defaults.PARALLEL_APPLY_WORKERS,
+        PIPELINED_CLOSE=node_defaults.PIPELINED_CLOSE,
+        INVARIANT_CHECKS=node_defaults.INVARIANT_CHECKS)
+    app = Application(VirtualClock(ClockMode.VIRTUAL_TIME), cfg,
+                      device=device)
+    app.start()
+    return app
+
+
+def close_results(app) -> list:
+    """(result code name, fee charged) of every tx of the last close, in
+    apply order, from its ``LedgerCloseMeta``."""
+    from stellar_core_tpu_torch.xdr import types as T
+    codes = T.TransactionResultCode
+    return [(codes.nameof(m.result.result.result.type),
+             m.result.result.feeCharged)
+            for m in app._meta_stream[-1].value.txProcessing]
+
+
+def node_state(app, types) -> dict:
+    """The last close's ledger hash, bucket-list hash, ``LedgerCloseMeta``
+    bytes and tx-history rows, of either package's node (``types`` is
+    that package's ``xdr.types``)."""
+    lm = app.ledger_manager
+    return {
+        "ledger_hash": lm.last_closed_hash(),
+        "bucket_list_hash": app.bucket_manager.get_bucket_list_hash(),
+        "meta": types.LedgerCloseMeta.encode(app._meta_stream[-1]),
+        "txhistory": app.database.execute(
+            "SELECT txid, ledgerseq, txindex, txbody, txresult, txmeta "
+            "FROM txhistory WHERE ledgerseq=? ORDER BY txindex",
+            (lm.last_closed_seq(),)).fetchall(),
+    }
+
+
+def close_peer_set(app, types, set_cls, data_cls, envs):
+    """Close a peer's tx set of ``envs`` on ``app`` through
+    ``close_ledger``, as a set that arrived from the wire
+    (``make_from_wire``: no admission filter), with the next close time;
+    either package's node, given that package's ``xdr.types``,
+    ``TxSetFrame`` and ``LedgerCloseData``.  Returns the set."""
+    lm = app.ledger_manager
+    lcl = lm.last_closed_header()
+    tx_set = set_cls.make_from_wire(
+        app.config.network_id(), types.TransactionSet.make(
+            previousLedgerHash=lm.last_closed_hash(), txs=envs))
+    sv = types.StellarValue.make(
+        txSetHash=tx_set.contents_hash(),
+        closeTime=lcl.scpValue.closeTime + 1, upgrades=[],
+        ext=types.StellarValue.fields[3][1].make(
+            types.StellarValueType.STELLAR_VALUE_BASIC))
+    lm.close_ledger(data_cls(lcl.ledgerSeq + 1, tx_set, sv))
+    app.herder.ledger_closed(lcl.ledgerSeq + 1)
+    return tx_set
+
+
+class CloseProbe:
+    """Counts, per close of node A, what its signature batch did: the
+    calls of the verify wrapper ``ops/ed25519_cuda.verify_batch`` with
+    their rows (the last call's inputs kept for a replay), the distinct
+    (pubkey, sig, msg) triples the batch's verdicts answered, and the
+    host ``verify_sig`` calls (verdicts that did not come from the batch).
+    Counts only inside ``app.ledger_manager.close_ledger``."""
+
+    def __init__(self, app):
+        from stellar_core_tpu_torch import crypto
+        from stellar_core_tpu_torch.herder.tx_set import TxSetFrame
+        from stellar_core_tpu_torch.ops import ed25519_cuda
+        self.app, self.crypto, self.ops = app, crypto, ed25519_cuda
+        self.txset_cls = TxSetFrame
+        self.last_batch = None
+        self._saved: dict = {}
+        self.reset()
+
+    def reset(self) -> None:
+        self.batches: list = []      # padded rows of each wrapper call
+        self.answered: set = set()
+        self.host_verifies = 0
+
+    def _close(self, real):
+        def close_ledger(close_data):
+            crypto, ops, cls = self.crypto, self.ops, self.txset_cls
+            real_verify, real_batch = crypto.verify_sig, ops.verify_batch
+            real_cached = cls.make_cached_verify
+
+            def verify_sig(*args):
+                self.host_verifies += 1
+                return real_verify(*args)
+
+            def verify_batch(pk, sg, mg, *args):
+                self.batches.append(int(pk.shape[0]))
+                self.last_batch = (pk, sg, mg)
+                return real_batch(pk, sg, mg, *args)
+
+            def make_cached_verify(tx_set, verdicts):
+                fallback = real_cached(tx_set, verdicts)
+
+                def verify(pub, sig, msg):
+                    if (pub, sig, msg) in verdicts:
+                        self.answered.add((pub, sig, msg))
+                    return fallback(pub, sig, msg)
+                return verify
+
+            crypto.verify_sig, ops.verify_batch = verify_sig, verify_batch
+            cls.make_cached_verify = make_cached_verify
+            try:
+                return real(close_data)
+            finally:
+                crypto.verify_sig, ops.verify_batch = real_verify, real_batch
+                cls.make_cached_verify = real_cached
+        return close_ledger
+
+    def __enter__(self):
+        lm = self.app.ledger_manager
+        lm.close_ledger = self._close(lm.close_ledger)
+        return self
+
+    def __exit__(self, *exc):
+        del self.app.ledger_manager.close_ledger
+
+
+def close_phases(app) -> dict:
+    """ms of each phase of the last close, and the verify phase's
+    dispatch / host-wait split from the tracer's spans."""
+    phases = app.ledger_manager.last_close_phases
+    out = {k: phases.get(k) for k in NODE_PHASES}
+    rec = app.tracer.get_close()
+    for sp in rec.spans if rec is not None else ():
+        if sp.name in ("crypto.sigbatch.dispatch", "crypto.sigbatch.host_wait"):
+            key = sp.name.rsplit(".", 1)[1] + "_ms"
+            out[key] = out.get(key, 0.0) + sp.seconds * 1e3
+    return out
+
+
+def run_node(device, n_accounts=NODE_ACCOUNTS, payment_closes=NODE_CLOSES,
+             forge_every=NODE_FORGE_EVERY, emit_line=None) -> dict:
+    """BASELINE config #1 on the port alone: node A (``CRYPTO_BACKEND=
+    "cuda"`` on ``device``, tallies ``"tensor"``) and node B (``"cpu"``,
+    ``"host"``) from genesis.  The root creates ``n_accounts`` accounts in
+    transactions of ``NODE_CREATE_OPS`` CREATE_ACCOUNT ops, in one close;
+    then ``payment_closes`` closes of one payment per account (account i
+    to i + 1, one signature each) go through ``recv_transaction`` and
+    ``manual_close()``; last, a tx set of one payment per account with
+    every ``forge_every``-th signature forged is closed through
+    ``close_ledger`` as a peer's set would be (``make_from_wire``).  Both
+    nodes get the same envelopes.  Checks after every close: A's batch
+    went through the verify wrapper once, with one row per signature
+    padded to a ``SIG_BATCH_BUCKETS`` size, its verdicts answered every
+    triple and no signature was verified on the host; every payment is
+    ``txSUCCESS``, every forged one ``txBAD_AUTH`` with its fee charged;
+    A and B agree in ledger hash, bucket-list hash and meta bytes.
+    ``emit_line`` gets one dict a close.  Returns the run's numbers."""
+    from stellar_core_tpu_torch.herder.tx_queue import TransactionQueue
+    from stellar_core_tpu_torch.herder.tx_set import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+    from stellar_core_tpu_torch.transactions.frame import \
+        tx_frame_from_envelope
+    from stellar_core_tpu_torch.utils.device import pad_signature_batch
+    from stellar_core_tpu_torch.xdr import types as T
+
+    emit_line = emit_line or (lambda line: None)
+    a, b = node_app("cuda", device), node_app("cpu")
+    on_card = a.device.type == "cuda"
+    if a.ledger_manager.last_closed_hash() != \
+            b.ledger_manager.last_closed_hash():
+        raise AssertionError("the nodes' genesis ledgers differ")
+    probe = CloseProbe(a)
+    out = {"closes": [], "launches": 0}
+    t0 = time.perf_counter()
+    accounts = [Account.named(a, b"node-account-%d" % i)
+                for i in range(n_accounts)]
+    keygen_s = time.perf_counter() - t0
+
+    def submit(envs) -> float:
+        pending = TransactionQueue.ADD_STATUS_PENDING
+        t0 = time.perf_counter()
+        got = [a.herder.recv_transaction(env) for env in envs]
+        admit_s = time.perf_counter() - t0
+        if got != [pending] * len(envs) or \
+                [b.herder.recv_transaction(env) for env in envs] != got:
+            raise AssertionError(f"admission statuses: {got}")
+        return admit_s
+
+    def close(kind, n_txs, want, close_fn, **timing) -> None:
+        probe.reset()
+        launches0 = ed25519_cuda.launches
+        t0 = time.perf_counter()
+        close_fn(a)
+        if on_card:
+            torch.cuda.synchronize()
+        close_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        close_fn(b)
+        b_close_s = time.perf_counter() - t0
+        launches = ed25519_cuda.launches - launches0
+        rows = len(probe.answered)
+        results = close_results(a)
+        if [code for code, _ in results] != want:
+            raise AssertionError(f"{kind} close: results {results}")
+        if any(fee <= 0 for _, fee in results):
+            raise AssertionError(f"{kind} close: a tx was not charged")
+        if probe.batches != [pad_signature_batch(n_txs)] or \
+                rows != n_txs or probe.host_verifies or \
+                launches != (1 if on_card else 0):
+            raise AssertionError(
+                f"{kind} close: batches {probe.batches}, {launches} "
+                f"launches, {rows} triples answered, "
+                f"{probe.host_verifies} host verifies")
+        if node_state(a, T) != node_state(b, T):
+            raise AssertionError(f"{kind} close: node A differs from the "
+                                 "cpu-backend node B")
+        out["launches"] += launches
+        line = {"phase": "node", "close": len(out["closes"]) + 1,
+                "kind": kind, "seq": a.ledger_manager.last_closed_seq(),
+                "txs": n_txs, "triples": rows, "padded": probe.batches[0],
+                "launches": launches, "host_verifies": probe.host_verifies,
+                "results": dict(collections.Counter(c for c, _ in results)),
+                "phases_ms": close_phases(a), "close_seconds": close_s,
+                "node_b_close_seconds": b_close_s, **timing,
+                "equal_to_cpu_node": True}
+        out["closes"].append(line)
+        emit_line(line)
+
+    with probe:
+        root = Account.root(a)
+        seq = root.next_seq()
+        t0 = time.perf_counter()
+        envs = [root.tx([root.op_create_account(acct.account_id, 10**10)
+                         for acct in accounts[i:i + NODE_CREATE_OPS]],
+                        seq=seq + k)
+                for k, i in enumerate(range(0, n_accounts, NODE_CREATE_OPS))]
+        sign_s = time.perf_counter() - t0
+        admit_s = submit(envs)
+        close("seed", len(envs), ["txSUCCESS"] * len(envs),
+              lambda app: app.herder.manual_close(), sign_seconds=sign_s,
+              admission_seconds=admit_s, keygen_seconds=keygen_s)
+
+        def payments():
+            return [acct.tx([acct.op_payment(
+                accounts[(i + 1) % n_accounts].account_id, 1 + i)])
+                for i, acct in enumerate(accounts)]
+
+        for _ in range(payment_closes):
+            t0 = time.perf_counter()
+            envs = payments()
+            sign_s = time.perf_counter() - t0
+            admit_s = submit(envs)
+            close("payments", n_accounts, ["txSUCCESS"] * n_accounts,
+                  lambda app: app.herder.manual_close(),
+                  sign_seconds=sign_s, admission_seconds=admit_s)
+
+        envs = payments()
+        forged = set(range(forge_every - 1, n_accounts, forge_every))
+        envs = [forge_envelope(env) if i in forged else env
+                for i, env in enumerate(envs)]
+
+        # the results in apply order: a forged signature leaves the tx's
+        # hash as it was
+        net_id = a.config.network_id()
+        bad = {tx_frame_from_envelope(net_id, envs[i]).full_hash()
+               for i in forged}
+        order = TxSetFrame.make_from_wire(net_id, T.TransactionSet.make(
+            previousLedgerHash=a.ledger_manager.last_closed_hash(),
+            txs=envs)).txs_in_apply_order()
+        want = ["txBAD_AUTH" if f.full_hash() in bad else "txSUCCESS"
+                for f in order]
+        close("forged", n_accounts, want, lambda app: close_peer_set(
+            app, T, TxSetFrame, LedgerCloseData, envs))
+    out.update(forged=len(forged), accounts=n_accounts,
+               last_batch=probe.last_batch, apps=(a, b))
+    return out
+
+
+def node_phase(card_line: str, dev) -> int:
+    """The ``node`` phase: builds the port's native libraries, runs
+    ``run_node`` at BASELINE config #1's size with node A on ``dev`` (the
+    verify kernel's launches counted from 0), holds the kernel against its
+    plain version on one close's batch and replays it by CUDA events, and
+    checks that every native library built and served
+    the closes (the native fee batch, the apply kernel, the tail encode
+    and the bucket merges).  Prints its lines; returns the launches.
+    Raises on any failed check."""
+    from stellar_core_tpu_torch import native
+    from stellar_core_tpu_torch.bucket import bucket_list as BL
+    from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
+    from stellar_core_tpu_torch.xdr import types as T
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    native.get_xdrpack()
+    native.get_apply_kernel()
+    emit({"phase": "node", "card": card_line,
+          "native_build_seconds": time.perf_counter() - t0,
+          "libraries": sorted(p.name for p in native.BUILD_DIR.glob("*.so")),
+          "accounts": NODE_ACCOUNTS, "txs_per_close": NODE_ACCOUNTS,
+          "payment_closes": NODE_CLOSES, "forge_every": NODE_FORGE_EVERY})
+    merges: list = []
+    real_merge = BL._native_merge
+
+    def merge(newer, older):
+        out = real_merge(newer, older)
+        merges.append(out is not None)
+        return out
+
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    BL._native_merge = merge
+    try:
+        run = run_node(dev, emit_line=emit)
+    finally:
+        BL._native_merge = real_merge
+    launches = ed25519_cuda.launches
+    if launches != len(run["closes"]):
+        raise AssertionError(f"{launches} verify launches for "
+                             f"{len(run['closes'])} closes")
+    a = run["apps"][0]
+    counters = {name: a.metrics.counter(name).count for name in (
+        "apply.native.hit", "apply.native.decline", "apply.native.fee.hit",
+        "apply.native.tail_encode.hit")}
+    counters["bucket.native_merges"] = sum(merges)
+    if not T.NATIVE_ENCODE or not all(counters[k] for k in (
+            "apply.native.hit", "apply.native.fee.hit",
+            "apply.native.tail_encode.hit", "bucket.native_merges")):
+        raise AssertionError(f"a native library did not serve the closes: "
+                             f"encoder {T.NATIVE_ENCODE}, {counters}")
+    # the kernel against its plain version on the node's own last batch
+    # (the forged close's): these launches come after the count was read
+    batch = run["last_batch"]
+    got = ed25519_cuda.verify_batch(*batch)
+    want = ed25519_kernel.verify_batch(*batch)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"the kernel differs from the plain version on the node's batch "
+            f"in {int((got != want).sum())} of {got.shape[0]} rows")
+    kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*batch))
+    totals = [c["phases_ms"]["total"] for c in run["closes"]
+              if c["kind"] != "seed"]
+    emit({"phase": "node", "accounts": run["accounts"],
+          "closes": len(run["closes"]), "launches": launches,
+          "forged": run["forged"], "native": counters,
+          "kernel_ms_replayed": kernel_ms,
+          "kernel_rows_replayed": int(batch[0].shape[0]),
+          "kernel_equal_to_plain_on_batch": True,
+          "batch_rows_false": int((~want).sum()),
+          "busy_share_of_close": [kernel_ms / t for t in totals],
+          "equal_to_cpu_node": True})
+    return launches
+
+
 def special_scalar_cases(ref, rng):
     """(A encoding, s, h) rows: every special scalar as s, as h and as
     both, beside seeded scalars mod L and seeded keys."""
@@ -1119,7 +1588,12 @@ def main() -> int:
     emit({"phase": "quorum_intersection", "seconds":
           time.perf_counter() - t0})
 
-    # -- 7. times ------------------------------------------------------------
+    # -- 7. node: a standalone node closes 1,000-payment ledgers ------------
+    t0 = time.perf_counter()
+    node_launches = node_phase(card_line, dev)
+    emit({"phase": "node", "seconds": time.perf_counter() - t0})
+
+    # -- 8. times ------------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)
@@ -1169,8 +1643,9 @@ def main() -> int:
         "name": ed25519_cuda.KERNEL, "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519_pallas.py:364",
-        "launches": launches + scp_launches,
-        "launches_by_path": {"admission": launches, "scp": scp_launches},
+        "launches": launches + scp_launches + node_launches,
+        "launches_by_path": {"admission": launches, "scp": scp_launches,
+                             "node": node_launches},
         "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_ms_ref10_count": ref10_ms,

@@ -1,0 +1,205 @@
+"""ed25519 sign/verify — the CPU reference backend.
+
+Mirrors the reference's libsodium wrappers (ref: src/crypto/SecretKey.{h,cpp}):
+- :func:`verify_sig` is the single chokepoint all tx-signature verification
+  routes through (ref PubKeyUtils::verifySig, src/crypto/SecretKey.cpp:428),
+  including the bounded verify cache (ref :44-47, 65535 entries; FIFO
+  eviction here where the reference evicts randomly — determinism gate).
+- Sign/verify primitives are OpenSSL-backed via the ``cryptography`` package;
+  :mod:`stellar_core_tpu_torch.crypto.ed25519_ref` holds a pure-Python
+  implementation of the curve math used as the executable spec for the TPU
+  kernel in :mod:`stellar_core_tpu_torch.ops.ed25519_kernel`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+try:
+    from cryptography.exceptions import InvalidSignature
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+        Ed25519PrivateKey,
+        Ed25519PublicKey,
+    )
+    _HAVE_OPENSSL = True
+except ImportError:
+    # toolchain-less hosts: fall back to the pure-Python executable spec
+    # (ed25519_ref) for sign/verify/keygen.  Slower (~ms per op) but
+    # bit-identical semantics, so nodes and tests still run.
+    _HAVE_OPENSSL = False
+
+from .sha import sha256
+
+# --- verify-sig cache (ref: src/crypto/SecretKey.cpp:44-50) -----------------
+_VERIFY_CACHE_SIZE = 0xFFFF
+_verify_cache: dict[bytes, bool] = {}
+_cache_hits = 0
+_cache_misses = 0
+
+
+def _cache_key(pubkey: bytes, signature: bytes, message: bytes) -> bytes:
+    # ref hashes key+sig+msg into one digest (SecretKey.cpp:50)
+    return sha256(pubkey + signature + message)
+
+
+def verify_cache_stats() -> tuple[int, int]:
+    return _cache_hits, _cache_misses
+
+
+def clear_verify_cache() -> None:
+    global _cache_hits, _cache_misses
+    _verify_cache.clear()
+    _cache_hits = 0
+    _cache_misses = 0
+
+
+# pure-Python tier only: seed -> derived public key (keygen is a full
+# base-point scalar mult; tests re-derive the same deterministic seeds
+# constantly)
+_pub_cache: dict[bytes, bytes] = {}
+
+_SMALL_ORDER: frozenset | None = None
+
+
+def _small_order_encodings() -> frozenset:
+    # lazy: ed25519_ref derives the 8-torsion encodings at import time
+    global _SMALL_ORDER
+    if _SMALL_ORDER is None:
+        from . import ed25519_ref
+
+        _SMALL_ORDER = frozenset(ed25519_ref.SMALL_ORDER_ENCODINGS)
+    return _SMALL_ORDER
+
+
+def raw_verify(pubkey: bytes, signature: bytes, message: bytes) -> bool:
+    """Uncached single verify, libsodium crypto_sign_verify_detached
+    semantics (the reference's backend, src/crypto/SecretKey.cpp:454).
+
+    OpenSSL (via `cryptography`) implements the same cofactorless equation
+    and canonicality rejections but does NOT blacklist small-order A/R;
+    the explicit pre-filter below closes exactly that delta so the CPU
+    tier, the executable spec (crypto/ed25519_ref.py), and the TPU kernels
+    agree on every input."""
+    if len(pubkey) != 32 or len(signature) != 64:
+        return False
+    so = _small_order_encodings()
+    if pubkey in so or signature[:32] in so:
+        return False
+    if not _HAVE_OPENSSL:
+        from . import ed25519_ref
+
+        return ed25519_ref.verify(pubkey, signature, message)
+    try:
+        Ed25519PublicKey.from_public_bytes(pubkey).verify(signature, message)
+        return True
+    except (InvalidSignature, ValueError):
+        return False
+
+
+def verify_sig(pubkey: bytes, signature: bytes, message: bytes) -> bool:
+    """Cached verify — the plugin-boundary chokepoint.
+
+    Semantics mirror PubKeyUtils::verifySig (ref src/crypto/SecretKey.cpp:428-459):
+    consult the cache; on miss verify and insert, evicting the oldest
+    entry at capacity.
+    """
+    global _cache_hits, _cache_misses
+    key = _cache_key(pubkey, signature, message)
+    hit = _verify_cache.get(key)
+    if hit is not None:
+        _cache_hits += 1
+        return hit
+    _cache_misses += 1
+    ok = raw_verify(pubkey, signature, message)
+    if len(_verify_cache) >= _VERIFY_CACHE_SIZE:
+        # deterministic FIFO eviction (oldest insertion) — the reference
+        # evicts randomly, but an unseeded RNG in the crypto tier trips
+        # the determinism gate and FIFO is behavior-equivalent for a
+        # pure memo cache (verdicts never change for a key)
+        _verify_cache.pop(next(iter(_verify_cache)))
+    _verify_cache[key] = ok
+    return ok
+
+
+def sign(seed: bytes, message: bytes) -> bytes:
+    if not _HAVE_OPENSSL:
+        from . import ed25519_ref
+
+        return ed25519_ref.sign(seed, message)
+    return Ed25519PrivateKey.from_private_bytes(seed).sign(message)
+
+
+@dataclass(frozen=True)
+class PublicKey:
+    """ed25519 public key (ref: src/crypto/SecretKey.h PublicKey = ed25519 key)."""
+
+    raw: bytes
+
+    def __post_init__(self) -> None:
+        if len(self.raw) != 32:
+            raise ValueError("public key must be 32 bytes")
+
+    def verify(self, signature: bytes, message: bytes) -> bool:
+        return verify_sig(self.raw, signature, message)
+
+    def strkey(self) -> str:
+        from .strkey import encode_ed25519_public_key
+
+        return encode_ed25519_public_key(self.raw)
+
+    @property
+    def hint(self) -> bytes:
+        """Last 4 bytes — the DecoratedSignature hint (ref: SignatureUtils)."""
+        return self.raw[-4:]
+
+
+class SecretKey:
+    """ed25519 secret key (ref: src/crypto/SecretKey.h:55)."""
+
+    def __init__(self, seed: bytes) -> None:
+        if len(seed) != 32:
+            raise ValueError("seed must be 32 bytes")
+        self._seed = seed
+        if _HAVE_OPENSSL:
+            self._priv = Ed25519PrivateKey.from_private_bytes(seed)
+            self._pub = self._priv.public_key().public_bytes_raw()
+        else:
+            self._priv = None
+            pub = _pub_cache.get(seed)
+            if pub is None:
+                from . import ed25519_ref
+
+                pub = ed25519_ref.public_from_seed(seed)
+                if len(_pub_cache) >= _VERIFY_CACHE_SIZE:
+                    _pub_cache.clear()
+                _pub_cache[seed] = pub
+            self._pub = pub
+
+    @classmethod
+    def random(cls) -> "SecretKey":
+        import os
+
+        return cls(os.urandom(32))
+
+    @classmethod
+    def from_seed_str(cls, name: str) -> "SecretKey":
+        """Deterministic test key from a name (ref: getAccount in test utils)."""
+        return cls(sha256(name.encode()))
+
+    @property
+    def seed(self) -> bytes:
+        return self._seed
+
+    def public_key(self) -> PublicKey:
+        return PublicKey(self._pub)
+
+    def sign(self, message: bytes) -> bytes:
+        if self._priv is None:
+            from . import ed25519_ref
+
+            return ed25519_ref.sign(self._seed, message)
+        return self._priv.sign(message)
+
+    def strkey_seed(self) -> str:
+        from .strkey import encode_ed25519_seed
+
+        return encode_ed25519_seed(self._seed)

@@ -5,10 +5,7 @@ xdrpp's ``xdrc`` (ref src/Makefile.am:42-47); XDR is the wire *and*
 canonical-hash format for everything (ref docs/architecture.md:52-54).
 This module is the equivalent runtime, redesigned for Python: declarative
 combinator objects with ``pack``/``unpack``, over which
-``xdr.types`` declares the protocol schema.  The port's copy of the
-JAX package's ``xdr/runtime.py``: the pure-Python pack/unpack only (the
-JAX package also routes ``encode`` through a native C packer, which is
-wire-identical; it is not carried over).
+``stellar_core_tpu_torch.xdr.types`` declares the protocol schema.
 
 Canonicality matters: every codec here round-trips to the unique canonical
 byte form (big-endian, 4-byte alignment, zero padding), so
@@ -568,3 +565,151 @@ class Lazy(XdrType):
             return self._get().unpack(r)
         finally:
             r.leave()
+
+
+# -- native encoder wiring (see native/xdr_pack.c) ---------------------------
+
+_native_pack = None
+_native_pack_many = None
+
+
+def _compile_native_schema(roots, build: bool = True) -> None:
+    """Flatten every reachable XdrType into the C node table and install
+    it.  Each compiled type gets ``_nidx`` (its node index); ``encode``
+    then routes through the C packer.  Wire bytes are identical by
+    construction; the Python pack tree remains the fallback/oracle."""
+    global _native_pack, _native_pack_many
+    from ..native import get_xdrpack
+
+    mod = get_xdrpack(build=build)
+    if mod is None:
+        return
+    import sys
+
+    nodes: List[tuple] = []
+    index: Dict[int, Tuple[int, XdrType]] = {}
+
+    def compile_type(t) -> int:
+        key = id(t)
+        if key in index:
+            return index[key][0]
+        if isinstance(t, Lazy):
+            # forward reference: compile the resolved target; shares its
+            # node (recursion terminates because the target reserves its
+            # slot before compiling children)
+            idx = compile_type(t._get())
+            index[key] = (idx, t)
+            return idx
+        idx = len(nodes)
+        index[key] = (idx, t)
+        nodes.append(None)  # reserve (recursive types)
+        memo = None
+        if isinstance(t, Struct):
+            if t.memoize:
+                memo = t
+            fields = tuple(
+                (sys.intern(f), compile_type(ft)) for f, ft in t.fields)
+            nodes[idx] = (7, 0, fields, None, None, -1, None, memo)
+        elif isinstance(t, Union):
+            if t.memoize:
+                memo = t
+            arm_map = {}
+            for d, (an, at) in t.arms.items():
+                arm_map[d] = (1, compile_type(at)) if at is not None \
+                    else (0, -1)
+            default = None
+            if t._default_arm is not None:
+                an, at = t._default_arm
+                default = (1, compile_type(at)) if at is not None \
+                    else (0, -1)
+            valid = (frozenset(t.disc.by_value)
+                     if isinstance(t.disc, Enum) else None)
+            nodes[idx] = (8, 0, None, arm_map, default, -1, valid, memo)
+        elif isinstance(t, Enum):
+            nodes[idx] = (12, 0, None, None, None, -1,
+                          frozenset(t.by_value), None)
+        elif isinstance(t, Opaque):
+            nodes[idx] = (5, t.n, None, None, None, -1, None, None)
+        elif isinstance(t, VarOpaque):  # includes XdrStr
+            nodes[idx] = (6, t.max_len, None, None, None, -1, None, None)
+        elif isinstance(t, FixedArray):
+            nodes[idx] = (9, t.n, None, None, None,
+                          compile_type(t.elem), None, None)
+        elif isinstance(t, VarArray):
+            nodes[idx] = (10, t.max_len, None, None, None,
+                          compile_type(t.elem), None, None)
+        elif isinstance(t, Option):
+            nodes[idx] = (11, 0, None, None, None,
+                          compile_type(t.elem), None, None)
+        elif isinstance(t, BoolType):
+            nodes[idx] = (4, 0, None, None, None, -1, None, None)
+        elif isinstance(t, UintType):
+            nodes[idx] = (1, 0, None, None, None, -1, None, None)
+        elif isinstance(t, UhyperType):
+            nodes[idx] = (3, 0, None, None, None, -1, None, None)
+        elif isinstance(t, HyperType):
+            nodes[idx] = (2, 0, None, None, None, -1, None, None)
+        elif isinstance(t, IntType):
+            nodes[idx] = (0, 0, None, None, None, -1, None, None)
+        else:
+            raise TypeError(f"uncompilable XdrType {type(t).__name__}")
+        return idx
+
+    for t in roots:
+        compile_type(t)
+    mod.init_schema(nodes, XdrError)
+    for idx, t in index.values():
+        t._nidx = idx
+    _native_pack = mod.pack
+    # older prebuilt .so without the batch entry: encode_many degrades
+    _native_pack_many = getattr(mod, "pack_many", None)
+
+
+def encode_many(pairs):
+    """Batch encode ``[(XdrType, value), ...]`` -> ``[bytes, ...]`` in
+    ONE native call (xdr_pack.c pack_many: shared arena, GIL-released
+    copy-out), or None when the native packer is unavailable — callers
+    fall back to per-value ``encode``.  Bytes are identical either way
+    (same node table, same packer)."""
+    if _native_pack_many is None:
+        return None
+    items = []
+    for t, v in pairs:
+        idx = getattr(t, "_nidx", -1)
+        if idx < 0:
+            return None
+        items.append((idx, v))
+    return _native_pack_many(items)
+
+
+def _encode_native(self, v):
+    idx = getattr(self, "_nidx", -1)
+    if idx >= 0 and _native_pack is not None:
+        return _native_pack(idx, v)
+    out: List[bytes] = []
+    self.pack(v, out)
+    return b"".join(out)
+
+
+def enable_native_encode(module, build: bool = True) -> bool:
+    """Compile every XdrType bound in ``module`` (the schema module) into
+    the native packer and reroute ``encode``.  ``build=False`` only uses
+    an already-built extension (imports stay cheap; Application.start
+    retries with build=True).  Safe no-op when unavailable."""
+    global _native_pack
+    if _native_pack is not None:
+        return True
+    # vars() order is module definition order (same every process);
+    # node indices are process-local and wire bytes are canonical by
+    # construction
+    # detlint: allow(det-unsorted-iter)
+    roots = [t for t in vars(module).values() if isinstance(t, XdrType)]
+    try:
+        _compile_native_schema(roots, build)
+    except Exception:
+        _native_pack = None
+        return False
+    if _native_pack is None:
+        return False
+    XdrType.encode = _encode_native
+    return True

@@ -1600,3 +1600,24 @@ TransactionMeta.memoize = True
 # the batched fee kernel returns feeProcessing changes pre-encoded; the
 # memo slot lets LazyUnion carry those bytes straight into the meta
 LedgerEntryChange.memoize = True
+
+# route encode() through the native schema-VM packer when the toolchain
+# can build it (native/xdr_pack.c); wire-identical, Python pack remains
+# the oracle and fallback
+import sys as _sys
+
+from .runtime import enable_native_encode as _enable_native_encode
+
+# import stays cheap: only an already-built extension is used here; node
+# startup (Application.start) retries with build=True and flips this on
+NATIVE_ENCODE = _enable_native_encode(_sys.modules[__name__], build=False)
+
+
+def ensure_native_encode() -> bool:
+    """Build + enable the native encoder (idempotent; called from
+    Application.start so every node process gets it)."""
+    global NATIVE_ENCODE
+    if not NATIVE_ENCODE:
+        NATIVE_ENCODE = _enable_native_encode(
+            _sys.modules[__name__], build=True)
+    return NATIVE_ENCODE

@@ -1,0 +1,154 @@
+"""The port's host modules that are copies of the JAX package's stay
+copies, its seams differ, and every relative import in the port resolves
+to a port module (and name), or to a module on the explicit list of those
+that a later slice ports.
+
+A copy is the JAX file's text with the package's dotted name
+``stellar_core_tpu.`` written ``stellar_core_tpu_torch.`` (only docstrings
+name it); every other byte is equal.  So a silent drift of either side, or
+a lazy import of a JAX-only module (``..ops.ed25519_pallas``,
+``..utils.device.device_available``) that would fail only when a node
+reaches it, fails here.
+"""
+import ast
+import importlib
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+JAX = REPO / "stellar_core_tpu"
+PORT = REPO / "stellar_core_tpu_torch"
+
+COPIES = """
+crypto/sha.py crypto/strkey.py crypto/shorthash.py crypto/ed25519.py
+native/xdr_pack.c native/bucket_merge.cpp native/apply_kernel.cpp
+native/quorum_enum.cpp
+xdr/__init__.py xdr/runtime.py xdr/types.py
+utils/__init__.py utils/clock.py utils/scheduler.py utils/metrics.py
+utils/txtrace.py utils/floodtrace.py utils/vitals.py utils/minitoml.py
+utils/lockdep.py utils/tracing.py
+database/__init__.py database/database.py
+ledger/__init__.py ledger/packed.py ledger/ledger_txn.py
+ledger/close_pipeline.py
+bucket/__init__.py bucket/index.py bucket/disk_bucket.py bucket/bucket_list.py
+transactions/__init__.py transactions/utils.py
+transactions/signature_checker.py transactions/frame.py
+transactions/fee_bump.py transactions/sponsorship.py
+transactions/liquidity_pool.py transactions/offer_exchange.py
+transactions/operations/__init__.py transactions/operations/account_ops.py
+transactions/operations/base.py transactions/operations/claimable_balance.py
+transactions/operations/liquidity_pool_ops.py
+transactions/operations/offers.py transactions/operations/payments.py
+transactions/operations/sponsorship_ops.py
+invariant/__init__.py invariant/manager.py
+apply/__init__.py apply/footprint.py apply/planner.py apply/native_apply.py
+apply/executor.py
+herder/upgrades.py herder/tx_queue.py herder/quorum_health.py
+herder/quorum_tracker.py
+scp/ballot.py scp/driver.py scp/qset_vector.py scp/quorum_sanity.py
+scp/statement.py scp/timeline.py
+work/__init__.py work/work.py process/__init__.py process/process_manager.py
+history/__init__.py history/archive.py history/manager.py
+catchup/__init__.py catchup/catchup_work.py catchup/manager.py
+main/__init__.py
+""".split()
+
+# New code where the JAX package reaches for its device: the close's
+# signature batch, the backend switches, the node's device, the native
+# libraries' build directory.
+SEAMS = """
+crypto/__init__.py native/__init__.py herder/__init__.py herder/tx_set.py
+herder/herder.py ledger/ledger_manager.py main/config.py main/application.py
+""".split()
+
+# Modules a later slice ports; the node reaches them only outside a
+# standalone node (``Application.enable_tcp`` and the herder's out-of-sync
+# recovery with an overlay).
+AWAITING = {
+    "stellar_core_tpu_torch.overlay.manager",
+    "stellar_core_tpu_torch.overlay.peer_manager",
+    "stellar_core_tpu_torch.overlay.tcp_peer",
+    "stellar_core_tpu_torch.main.http_server",
+    "stellar_core_tpu_torch.xdr.overlay_types",
+}
+
+
+def _as_port(text: str) -> str:
+    return text.replace("stellar_core_tpu.", "stellar_core_tpu_torch.")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_equals_the_jax_module(rel):
+    jax_text = (JAX / rel).read_text()
+    assert (PORT / rel).read_text() == _as_port(jax_text), \
+        f"{rel} drifted from stellar_core_tpu/{rel}"
+
+
+@pytest.mark.parametrize("rel", SEAMS)
+def test_seam_differs_from_the_jax_module(rel):
+    assert (PORT / rel).read_text() != _as_port((JAX / rel).read_text())
+
+
+def _module_name(path: Path) -> str:
+    parts = list(path.relative_to(REPO).with_suffix("").parts)
+    if parts[-1] == "__init__":
+        parts.pop()
+    return ".".join(parts)
+
+
+def _relative_imports():
+    """(importing module, target module, names) of every relative import
+    in the port, at any depth of the code."""
+    out = []
+    for path in sorted(PORT.rglob("*.py")):
+        mod = _module_name(path)
+        package = mod if path.name == "__init__.py" else \
+            mod.rpartition(".")[0]
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                base = package.split(".")
+                base = base[:len(base) - (node.level - 1)]
+                target = ".".join(base + ([node.module] if node.module
+                                          else []))
+                out.append((mod, target, [a.name for a in node.names]))
+    return out
+
+
+def _resolves(target: str, name: str) -> bool:
+    if f"{target}.{name}" in AWAITING:
+        return True
+    mod = importlib.import_module(target)
+    if hasattr(mod, name):
+        return True
+    return hasattr(mod, "__path__") and \
+        importlib.util.find_spec(f"{target}.{name}") is not None
+
+
+def test_every_relative_import_resolves_in_the_port():
+    imports = _relative_imports()
+    assert len(imports) > 300
+    bad = []
+    for mod, target, names in imports:
+        if target in AWAITING:
+            continue
+        if importlib.util.find_spec(target) is None:
+            bad.append((mod, target))
+            continue
+        bad += [(mod, f"{target}.{n}") for n in names
+                if not _resolves(target, n)]
+    assert not bad, bad
+
+
+def test_awaiting_modules_are_absent_and_imported():
+    """The list of modules a later slice ports stays honest: none of them
+    is in the port yet, and every one of them is imported somewhere."""
+    targets = {t for _, t, _ in _relative_imports()}
+    targets |= {f"{t}.{n}" for _, t, names in _relative_imports()
+                for n in names}
+    for name in sorted(AWAITING):
+        rel = Path(*name.split(".")[1:])
+        assert not (PORT / rel.with_suffix(".py")).exists(), name
+        assert not (PORT / rel).is_dir(), name
+        assert name in targets, f"{name} is imported nowhere"
