@@ -75,7 +75,29 @@ Phases (each prints one JSON line):
                in every ledger; the kernel equals its plain version on the
                overlay batch that held the forged envelope; the phase stays
                within 150 s;
-  9. times   — CUDA-event times (warm-up excluded) with the card's name
+  9. bench   — the port's headline bench (``stellar_core_tpu_torch.bench``)
+               at 100,000 signatures and 4 closes a shape (its default 24,
+               cut): config #2's LoadGenerator payments through
+               ``TxSetFrame.make_from_wire`` and ``collect_signature_batch``,
+               padded to 131,072 rows, through the kernel (every verdict
+               true, equal to the plain version), against sequential
+               OpenSSL verifies on the same host, and the close's
+               ``prevalidate_signatures`` on the same set; config #1's
+               1,000-tx closes (payments, 30% DEX mixed, mixed with tracing
+               off) on a ``cuda`` node and a ``cpu`` node fed the same bytes,
+               with equal ledger hashes after every close; the bench's
+               lines, its last line as its own line;
+ 10. parallel — ``bench_sharded`` over the visible cards on the bench's
+               batch (from a workload file), and ``dryrun_multichip(8)``
+               over 8 CPU chunks, equal to the unsharded step;
+ 11. cli     — two ``python -m stellar_core_tpu_torch --conf <toml> run``
+               processes (``CRYPTO_BACKEND="cuda"``, a 2-of-2 quorum over
+               localhost TCP), driven over their admin HTTP: ``tx?blob=``,
+               ``generateload`` create and pay, ``quorum?intersection=
+               true``; both close 3 more ledgers with one header hash, and
+               each launched the kernel for its overlay batches and its
+               closes (``/metrics``); the children are killed on exit;
+ 12. times   — CUDA-event times (warm-up excluded) with the card's name
                and power limit: the kernel, ``admission_step``, one
                recorded live tally call replayed, with the contraction
                trips, CUDA runtime calls and device kernels of one replay
@@ -125,6 +147,17 @@ NET_PAYMENT_LEDGERS = 2   # ledgers of one payment per account
 NET_FORGE_SEQ = 3         # the slot whose drain gets one forged envelope
 NET_MAX_SECONDS = 150     # budget of the network phase
 NET_SETTLE_CRANKS = 1000  # cranks before a network counts as stuck
+BENCH_SIGNATURES = 100_000   # config #2, the bench's default
+BENCH_CLOSES = 4          # closes a shape (the bench's default 24, cut)
+BENCH_CLOSE_TXS = 1000    # config #1: 1,000-tx ledgers
+CLI_PASSPHRASE = "tcp process test net"
+CLI_ACCOUNTS = 100        # generateload accounts, and payments
+CLI_LEDGERS = 3           # ledgers both CLI nodes close after the traffic
+CLI_MAX_SECONDS = 150     # budget of the cli phase
+CLI_COUNTERS = ("overlay.sigbatch.batches", "overlay.sigbatch.envelopes",
+                "ledger.ledger.count")
+# a ``cuda`` node's gauge of the verify kernel's own launch counter
+CLI_LAUNCHES = "crypto.verify.kernel-launches"
 NODE_PHASES = ("prefetch", "verify", "fee", "plan", "apply", "hash",
                "bucket", "stage", "commit", "meta", "total")
 SEED = 20260601
@@ -167,13 +200,6 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def triple_columns(triples) -> list:
-    """[(pubkey, sig, msg)] bytes -> the (N,32), (N,64), (N,32) uint8
-    arrays the verify wrappers take."""
-    return [np.frombuffer(b"".join(t[i] for t in triples), np.uint8).reshape(
-        len(triples), w) for i, w in enumerate((32, 64, 32))]
-
-
 def edge_vectors(ref, sha256):
     """The 26 libsodium edge vectors (valid, bad-sig, 10 small-order A,
     10 small-order R, non-canonical A and R, malleable s, off-curve A)."""
@@ -190,7 +216,9 @@ def edge_vectors(ref, sha256):
     while ref._recover_x(y, 0) is not None:
         y += 1
     out.append((int.to_bytes(y, 32, "little"), sig, msg))
-    return triple_columns(out)
+    from stellar_core_tpu_torch.utils.device import signature_columns
+
+    return signature_columns(out)
 
 
 def signed_triples(ref, sha256, rng):
@@ -441,9 +469,11 @@ def batch_verifier(verify_batch, pad, device, sizes: list):
     """``Network.verify`` through ``verify_batch`` on ``device``: one call
     per round, the batch padded to ``pad(n)`` rows by repeating rows as
     the overlay does; appends each padded size to ``sizes``."""
+    from stellar_core_tpu_torch.utils.device import signature_columns
+
     def verify(triples):
         n = len(triples)
-        cols = triple_columns(triples)
+        cols = signature_columns(triples)
         idx = np.arange(pad(n)) % n
         sizes.append(idx.size)
         ok = verify_batch(*(torch.as_tensor(c[idx], device=device)
@@ -1555,7 +1585,8 @@ def network_phase(card_line: str, dev) -> tuple[int, int]:
     launches.  Raises on any failed check, and when the phase runs past
     ``NET_MAX_SECONDS``."""
     from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
-    from stellar_core_tpu_torch.utils.device import pad_signature_batch
+    from stellar_core_tpu_torch.utils.device import (pad_signature_batch,
+                                                     signature_columns)
 
     t_phase = time.perf_counter()
     emit({"phase": "network", "card": card_line,
@@ -1590,7 +1621,7 @@ def network_phase(card_line: str, dev) -> tuple[int, int]:
     # the count was read
     batch = net_a["kept_batch"]
     distinct = [torch.as_tensor(c, device=dev)
-                for c in triple_columns(net_a["launched_triples"])]
+                for c in signature_columns(net_a["launched_triples"])]
     false_rows = []
     for label, rows in (("the forged envelope's batch", batch),
                         ("the distinct triples", distinct)):
@@ -1646,6 +1677,315 @@ def network_phase(card_line: str, dev) -> tuple[int, int]:
         raise AssertionError(f"the network phase took {seconds:.1f} s, "
                              f"over its {NET_MAX_SECONDS} s budget")
     return overlay, close
+
+
+# -- the headline bench, data-parallel admission, the node's command line ----
+
+def bench_phase(card_line: str, dev) -> tuple[int, tuple]:
+    """The ``bench`` phase: the port's headline bench
+    (``stellar_core_tpu_torch.bench.run``) on ``dev`` with
+    ``BENCH_SIGNATURES`` signatures and ``BENCH_CLOSES`` closes a shape (the
+    bench's default 24, cut), the verify kernel's launches counted from 0.
+    Prints the bench's lines, its last line as its own line; returns the
+    launches and the config #2 batch (pk, sg, mg).  Raises on a false
+    verdict, the kernel differing from its plain version, or a ledger hash
+    that differs between the bench's ``cuda`` and ``cpu`` nodes (the bench
+    raises on each), and on a line that does not say so."""
+    import gc
+
+    from stellar_core_tpu_torch import bench
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    out = bench.run(dev, n_sigs=BENCH_SIGNATURES, n_closes=BENCH_CLOSES,
+                    close_txs=BENCH_CLOSE_TXS, emit=emit)
+    torch.cuda.synchronize()
+    launches = ed25519_cuda.launches
+    line = out["line"]
+    emit(line)
+    if (line["kernel"], line["kernel_equal_to_plain"],
+            line["close_ledger_hashes_equal"]) != ("cuda", True, True) or \
+            line["verdicts_true"] != line["n_padded"] or \
+            line["n_signatures"] != BENCH_SIGNATURES:
+        raise AssertionError(f"bench line: {line}")
+    # the verify stage (a build call, 3 timed, 3 by CUDA events), the
+    # close's seam once, and one launch a close of node A
+    want = 7 + 1 + 3 * BENCH_CLOSES
+    if launches != want:
+        raise AssertionError(f"{launches} bench launches, {want} expected")
+    emit({"phase": "bench", "card": card_line, "launches": launches,
+          "signatures": BENCH_SIGNATURES, "closes_per_shape": BENCH_CLOSES,
+          "close_txs": BENCH_CLOSE_TXS,
+          "reduced": {"closes_per_shape": {"bench_default": 24,
+                                           "here": BENCH_CLOSES}},
+          "seconds": time.perf_counter() - t0})
+    gc.collect()
+    return launches, out["batch"]
+
+
+def parallel_phase(card_line: str, batch) -> int:
+    """The ``parallel`` phase: ``bench_sharded`` over every visible card on
+    the bench's config #2 batch (from a workload file, as the JAX bench
+    reads one; the launches counted from 0), then ``dryrun_multichip(8)``
+    over 8 CPU chunks, which raises unless each sharded result equals the
+    unsharded step.  Prints its line; returns the launches."""
+    import os
+    import tempfile
+
+    from stellar_core_tpu_torch import entry
+    from stellar_core_tpu_torch.models import admission as A
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+
+    t0 = time.perf_counter()
+    pk, sg, mg = batch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "workload.npz")
+        np.savez(path, pk=pk, sg=sg, mg=mg)
+        torch.cuda.synchronize()
+        ed25519_cuda.reset_launches()
+        res = A.bench_sharded(torch.cuda.device_count(),
+                              n_sigs=pk.shape[0], workload_npz=path)
+        torch.cuda.synchronize()
+        launches = ed25519_cuda.launches
+    if launches != 2 * res["n_devices"]:
+        raise AssertionError(f"{launches} launches for {res['n_devices']} "
+                             "devices (a first call and one rep each)")
+    t1 = time.perf_counter()
+    dry = entry.dryrun_multichip(8)
+    emit({"phase": "parallel", "card": card_line, "bench_sharded": res,
+          "launches": launches,
+          "dryrun_multichip": {"chunks": 8, "device": "cpu",
+                               "signatures": int(dry["sig_ok"].shape[0]),
+                               "validators": int(
+                                   dry["tally_accept"].shape[0]),
+                               "equal_to_unsharded": True,
+                               "seconds": time.perf_counter() - t1},
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(port: int, path: str, timeout: float = 5.0) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/{path}",
+                                timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def cli_tomls(tmp, seeds, backend: str) -> tuple[list, list, list]:
+    """Two node TOMLs of a 2-of-2 network over localhost, as
+    ``tests/test_tcp_node.py`` writes them, on ``backend`` (tallies
+    ``tensor`` on ``cuda``, ``host`` on ``cpu``), traces under ``tmp``.
+    Returns the paths and the peer and HTTP ports."""
+    from pathlib import Path
+
+    from stellar_core_tpu_torch.crypto import SecretKey
+    from stellar_core_tpu_torch.crypto.strkey import (
+        encode_ed25519_public_key, encode_ed25519_seed)
+
+    ids = [encode_ed25519_public_key(SecretKey(s).public_key().raw)
+           for s in seeds]
+    peer_ports = [free_port(), free_port()]
+    http_ports = [free_port(), free_port()]
+    tally = "tensor" if backend == "cuda" else "host"
+    paths = []
+    for i, seed in enumerate(seeds):
+        path = Path(tmp) / f"node{i}.toml"
+        peers = f'"127.0.0.1:{peer_ports[1 - i]}"' if i == 1 else ""
+        path.write_text(f"""
+network_passphrase = "{CLI_PASSPHRASE}"
+node_seed = "{encode_ed25519_seed(seed)}"
+peer_port = {peer_ports[i]}
+http_port = {http_ports[i]}
+known_peers = [{peers}]
+manual_close = false
+artificially_accelerate_time_for_testing = true
+exp_ledger_timespan_seconds = 1.0
+invariant_checks = [".*"]
+trace_dir = "{Path(tmp) / 'traces'}"
+crypto_backend = "{backend}"
+scp_tally_backend = "{tally}"
+
+[quorum_set]
+threshold = 2
+validators = [{", ".join(f'"{x}"' for x in ids)}]
+""")
+        paths.append(path)
+    return paths, peer_ports, http_ports
+
+
+def run_cli(backend: str) -> dict:
+    """Two ``python -m stellar_core_tpu_torch --conf <toml> run`` processes
+    on ``backend`` (2-of-2 over localhost TCP), driven over their admin
+    HTTP: once both close ledgers, ``tx?blob=`` (the root creates an
+    account), ``generateload?mode=create`` then ``mode=pay`` on node 0,
+    ``quorum?intersection=true``; then both must close ``CLI_LEDGERS``
+    more ledgers with nothing pending, and agree on the header hash at a
+    common height.  Every wait ends by ``CLI_MAX_SECONDS``; the children are
+    stopped (SIGINT, then killed) on every way out.  Returns what it saw,
+    with each node's ``/metrics`` counters."""
+    import base64
+    import os
+    import signal
+    import tempfile
+    import urllib.parse
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from stellar_core_tpu_torch.crypto import SecretKey, sha256
+    from stellar_core_tpu_torch.xdr import types as T
+
+    t_start = time.monotonic()
+
+    def wait(what, poll):
+        """Poll ``poll()`` until it gives a value, within the deadline."""
+        while True:
+            if time.monotonic() - t_start > CLI_MAX_SECONDS:
+                raise AssertionError(f"the CLI nodes ran past "
+                                     f"{CLI_MAX_SECONDS} s waiting for {what}")
+            try:
+                got = poll()
+            except OSError:   # an endpoint not up yet, a refused connect
+                got = None
+            if got:
+                return got
+            time.sleep(0.25)
+
+    repo = Path(__file__).resolve().parent
+    seeds = [sha256(b"tcp-node-%d" % i) for i in range(2)]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tomls, _, ports = cli_tomls(tmp, seeds, backend)
+        env = dict(os.environ, PYTHONPATH=str(repo))
+        procs, logs = [], []
+        try:
+            for i, toml in enumerate(tomls):
+                # log to files, never a pipe: an unread pipe fills and
+                # blocks the node mid-write
+                log = open(Path(tmp) / f"node{i}.log", "w")
+                logs.append(log)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "stellar_core_tpu_torch",
+                     "--conf", str(toml), "run"], cwd=tmp, env=env,
+                    stdout=log, stderr=subprocess.STDOUT))
+
+            def infos():
+                for p in procs:
+                    if p.poll() is not None:
+                        raise AssertionError(
+                            f"a CLI node exited with {p.returncode}: "
+                            + (Path(tmp) / "node0.log").read_text()[-2000:]
+                            + (Path(tmp) / "node1.log").read_text()[-2000:])
+                return [http_json(p, "info")["info"] for p in ports]
+
+            def height(i) -> int:
+                return i["ledger"].get("num", 0)
+
+            wait("both nodes closing", lambda: min(
+                height(i) for i in infos()) >= 3)
+            out["boot_seconds"] = time.monotonic() - t_start
+
+            # the root (its seed is the network id) creates an account,
+            # through tx?blob
+            root = Account(SimpleNamespace(config=SimpleNamespace(
+                network_id=lambda: sha256(CLI_PASSPHRASE.encode()))),
+                SecretKey(sha256(CLI_PASSPHRASE.encode())))
+            env_tx = root.tx([root.op_create_account(
+                SecretKey(sha256(b"cli-dest")).public_key().raw, 10**9)],
+                seq=1)
+            blob = base64.b64encode(
+                T.TransactionEnvelope.encode(env_tx)).decode()
+            res = http_json(ports[0], "tx?blob=" + urllib.parse.quote(blob))
+            if res.get("status") != "PENDING":
+                raise AssertionError(f"tx?blob: {res}")
+
+            def settled(after: int) -> bool:
+                got = infos()
+                return all(i["pending_txs"] == 0 and height(i) > after
+                           for i in got)
+
+            start = max(height(i) for i in infos())
+            wait("the tx applied", lambda: settled(start))
+            res = http_json(ports[0], "generateload?mode=create&accounts="
+                            f"{CLI_ACCOUNTS}")
+            if res.get("status_counts") != {"0": CLI_ACCOUNTS // 100}:
+                raise AssertionError(f"generateload create: {res}")
+            start = max(height(i) for i in infos())
+            wait("the accounts created", lambda: settled(start))
+            res = http_json(ports[0], f"generateload?mode=pay&txs="
+                            f"{CLI_ACCOUNTS}")
+            if res.get("status_counts") != {"0": CLI_ACCOUNTS}:
+                raise AssertionError(f"generateload pay: {res}")
+            out["quorum"] = http_json(ports[0], "quorum?intersection=true",
+                                      timeout=60.0)
+            if out["quorum"].get("intersection") is not True:
+                raise AssertionError(f"quorum: {out['quorum']}")
+            start = max(height(i) for i in infos())
+            wait("the payments applied", lambda: settled(start))
+            wait(f"{CLI_LEDGERS} more ledgers", lambda: min(
+                height(i) for i in infos()) >= start + CLI_LEDGERS)
+
+            def common():
+                got = infos()
+                if height(got[0]) == height(got[1]):
+                    return got
+                return None
+            got = wait("a common height", common)
+            hashes = {i["ledger"]["hash"] for i in got}
+            if len(hashes) != 1:
+                raise AssertionError(f"header hashes differ at ledger "
+                                     f"{height(got[0])}: {hashes}")
+            out.update(ledger=height(got[0]), hash=hashes.pop(),
+                       crypto_backend=[i["crypto_backend"] for i in got])
+            out["metrics"] = []
+            for p in ports:
+                snap = http_json(p, "metrics")["metrics"]
+                got = {name: snap.get(name, {}).get("count", 0)
+                       for name in CLI_COUNTERS}
+                if CLI_LAUNCHES in snap:
+                    got[CLI_LAUNCHES] = int(snap[CLI_LAUNCHES]["value"])
+                out["metrics"].append(got)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGINT)
+            for p in procs:
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def cli_phase(card_line: str) -> int:
+    """The ``cli`` phase: ``run_cli`` on ``CRYPTO_BACKEND="cuda"`` (each
+    child builds the verify kernel from the checkout on its first batch).
+    Each node must have batched its overlay envelopes and launched the
+    kernel: its ``/metrics`` gauge ``crypto.verify.kernel-launches`` reads
+    the wrapper's own launch counter in that process.  Prints its line;
+    returns the two nodes' launches."""
+    out = run_cli("cuda")
+    per_node = [m.get(CLI_LAUNCHES, 0) for m in out["metrics"]]
+    if out["crypto_backend"] != ["cuda", "cuda"] or min(per_node) < 1 or any(
+            m["overlay.sigbatch.batches"] < 1 for m in out["metrics"]):
+        raise AssertionError(f"the CLI nodes' batches: {out['metrics']}")
+    emit({"phase": "cli", "card": card_line, **out,
+          "launches_per_node": per_node})
+    return sum(per_node)
 
 
 def special_scalar_cases(ref, rng):
@@ -2009,7 +2349,17 @@ def main() -> int:
     # -- 8. network: 21 validators over the loopback overlay -----------------
     net_launches, net_close_launches = network_phase(card_line, dev)
 
-    # -- 9. times ------------------------------------------------------------
+    # -- 9. bench: the headline bench at config #2's full size ---------------
+    bench_launches, bench_batch = bench_phase(card_line, dev)
+
+    # -- 10. parallel: data-parallel admission -------------------------------
+    parallel_launches = parallel_phase(card_line, bench_batch)
+    del bench_batch
+
+    # -- 11. cli: two node processes over TCP, driven over HTTP --------------
+    cli_launches = cli_phase(card_line)
+
+    # -- 12. times -----------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)
@@ -2060,10 +2410,14 @@ def main() -> int:
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519_pallas.py:364",
         "launches": (launches + scp_launches + node_launches
-                     + net_launches + net_close_launches),
+                     + net_launches + net_close_launches + bench_launches
+                     + parallel_launches + cli_launches),
         "launches_by_path": {"admission": launches, "scp": scp_launches,
                              "node": node_launches, "network": net_launches,
-                             "network_close": net_close_launches},
+                             "network_close": net_close_launches,
+                             "bench": bench_launches,
+                             "parallel": parallel_launches,
+                             "cli": cli_launches},
         "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_ms_ref10_count": ref10_ms,

@@ -42,7 +42,7 @@ import torch
 
 from ..ops import quorum as Q
 from ..scp import local_node as LN
-from ..utils.device import default_device
+from ..utils.device import cpu_threads, default_device
 
 # device chunk: the device tier contracts at most this many rows at once
 BATCH = 256
@@ -248,10 +248,12 @@ class _Contractor:
         if self.use_device:
             # each chunk stops at its fixpoint: the rows of the JAX
             # package's N fixed trips, since a trip only drops nodes
-            rows = torch.from_numpy(m).to(self.device)
-            chunks = [Q.contract_shared(self._shared, rows[base:base + BATCH])
-                      for base in range(0, m.shape[0], BATCH)]
-            return torch.cat(chunks).cpu().numpy()
+            with cpu_threads(self.device):
+                rows = torch.from_numpy(m).to(self.device)
+                chunks = [Q.contract_shared(self._shared,
+                                            rows[base:base + BATCH])
+                          for base in range(0, m.shape[0], BATCH)]
+                return torch.cat(chunks).cpu().numpy()
         # numpy fixpoint — mirrors ops/quorum.contract_batch bit-for-bit
         while True:
             s = m.astype(np.int32)

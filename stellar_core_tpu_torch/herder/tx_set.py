@@ -240,30 +240,22 @@ class TxSetFrame:
             return {}
         verdicts: Dict[Tuple[bytes, bytes, bytes], bool] = {}
         if use_device:
-            import numpy as np
             import torch
 
             from ..ops.ed25519_cuda import verify_batch
-            from ..utils.device import default_device, pad_signature_batch
+            from ..utils.device import (default_device,
+                                        padded_signature_batch,
+                                        signature_columns)
 
             dev = default_device(device)
             with tracer.span("crypto.sigbatch.dispatch",
                              n_sigs=len(triples)):
                 n = len(triples)
-                pk = np.frombuffer(
-                    b"".join(t[0] for t in triples),
-                    np.uint8).reshape(n, 32)
-                sg = np.frombuffer(
-                    b"".join(t[1].ljust(64, b"\x00") for t in triples),
-                    np.uint8).reshape(n, 64)
-                mg = np.frombuffer(
-                    b"".join(t[2] for t in triples),
-                    np.uint8).reshape(n, 32)
                 # pad to a fixed batch bucket (repeating real rows) so the
                 # device sees a small closed set of shapes
-                idx = np.arange(pad_signature_batch(n)) % n
-                pending = verify_batch(*(torch.from_numpy(a[idx]).to(dev)
-                                         for a in (pk, sg, mg)))
+                pending = verify_batch(*(
+                    torch.from_numpy(a).to(dev) for a in
+                    padded_signature_batch(*signature_columns(triples))))
             with tracer.span("crypto.sigbatch.host_wait"):
                 # the readback waits for the kernel: the dispatch/host-wait
                 # split is launch overhead vs. kernel time

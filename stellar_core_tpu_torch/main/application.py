@@ -15,7 +15,7 @@ from ..herder.herder import Herder
 from ..invariant.manager import InvariantManager
 from ..ledger.ledger_manager import LedgerManager
 from ..utils.clock import ClockMode, VirtualClock
-from ..utils.metrics import MetricsRegistry
+from ..utils.metrics import Gauge, MetricsRegistry
 from ..utils.scheduler import Scheduler
 from ..work.work import WorkScheduler
 from ..xdr import types as T
@@ -23,6 +23,22 @@ from .config import Config
 
 # process-global one-shot flag for the deferred-GC policy
 _GC_DEFERRED = False
+
+
+class KernelLaunches(Gauge):
+    """The verify kernel's launches in this process: the wrapper's own
+    count (``ops/ed25519_cuda.launches``, raised where the kernel is
+    launched and nowhere else), read whenever the registry is scraped."""
+
+    @property
+    def value(self) -> float:
+        from ..ops import ed25519_cuda
+
+        return float(ed25519_cuda.launches)
+
+    @value.setter
+    def value(self, v) -> None:
+        pass  # read-only: the wrapper's counter is the count
 
 
 class Application:
@@ -46,6 +62,11 @@ class Application:
 
             self.device = default_device(device)
         self.metrics = MetricsRegistry(clock)
+        if config.CRYPTO_BACKEND == "cuda":
+            # ``crypto.verify.kernel-launches`` in /metrics (the registry
+            # creates a metric of its own class on first use)
+            self.metrics._get("crypto.verify.kernel-launches",
+                              KernelLaunches)
         # flight recorder: span ring + slow-close watchdog (utils/tracing)
         from ..utils.tracing import Tracer
 

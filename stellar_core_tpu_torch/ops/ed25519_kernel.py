@@ -18,19 +18,16 @@ signatures cover a SHA-256 content hash.  Scans become Python loops.
 """
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
 from ..crypto import ed25519_ref as ref
+from ..utils.device import cpu_threads
 from . import field25519 as F
 from . import scalar25519 as S
 from .sha512 import sha512_96
 
 I32 = torch.int32
-# guards the process-wide intra-op thread count across CPU verify calls
-_CPU_THREADS_LOCK = threading.Lock()
 
 _D = F.int_to_limbs(ref.D)
 _D2 = F.int_to_limbs(2 * ref.D % F.P)
@@ -216,26 +213,8 @@ def verify_batch(pubkeys: torch.Tensor, sigs: torch.Tensor,
                  msgs: torch.Tensor) -> torch.Tensor:
     """Batched ed25519 verify: (N,32) x (N,64) x (N,32) uint8 -> (N,) bool,
     the spec's verdicts (libsodium semantics incl. the small-order
-    blacklist).  Runs on whatever device the inputs are on.
-
-    On the CPU it runs on one intra-op thread: its tens of thousands of
-    small ops gain nothing from the thread pool, and a pool that forks and
-    joins on every op stalls by orders of magnitude when other processes
-    (parallel test workers) hold the cores with pools of their own.  The
-    thread count is the process's: CPU calls run one at a time under a
-    module lock, which saves and restores it, and other CPU torch work of
-    the process runs on one thread while a call lasts."""
-    if pubkeys.device.type != "cpu":
-        return _verify_checked(pubkeys, sigs, msgs)
-    with _CPU_THREADS_LOCK:
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            return _verify_checked(pubkeys, sigs, msgs)
-        finally:
-            torch.set_num_threads(threads)
-
-
-def _verify_checked(pubkeys, sigs, msgs) -> torch.Tensor:
-    ok = _verify_impl(pubkeys, sigs, msgs)
-    return ok & ~small_order(pubkeys) & ~small_order(sigs[..., :32])
+    blacklist).  Runs on whatever device the inputs are on (on the CPU, on
+    one intra-op thread: ``utils.device.cpu_threads``)."""
+    with cpu_threads(pubkeys.device):
+        ok = _verify_impl(pubkeys, sigs, msgs)
+        return ok & ~small_order(pubkeys) & ~small_order(sigs[..., :32])

@@ -412,26 +412,20 @@ class OverlayManager:
                           for t in triples)
         if self.app.config.CRYPTO_BACKEND == "cuda" and \
                 len(triples) >= 2 and well_formed:
-            import numpy as np
             import torch
 
             from ..ops.ed25519_cuda import verify_batch
-            from ..utils.device import default_device, pad_signature_batch
+            from ..utils.device import (default_device,
+                                        padded_signature_batch,
+                                        signature_columns)
 
             dev = default_device(self.app.device)
-            n = len(triples)
-            pk = np.frombuffer(b"".join(t[0] for t in triples),
-                               np.uint8).reshape(n, 32)
-            sg = np.frombuffer(b"".join(t[1] for t in triples),
-                               np.uint8).reshape(n, 64)
-            mg = np.frombuffer(b"".join(t[2] for t in triples),
-                               np.uint8).reshape(n, 32)
             # the device sees a small closed set of shapes: rows repeat
             # up to the SIG_BATCH_BUCKETS size
-            idx = np.arange(pad_signature_batch(n)) % n
-            ok = verify_batch(*(torch.from_numpy(a[idx]).to(dev)
-                                for a in (pk, sg, mg)))
-            return [bool(v) for v in ok[:n].cpu().numpy()]
+            ok = verify_batch(*(
+                torch.from_numpy(a).to(dev) for a in
+                padded_signature_batch(*signature_columns(triples))))
+            return [bool(v) for v in ok[:len(triples)].cpu().numpy()]
         from ..crypto import verify_sig
 
         return [verify_sig(p, s, m) for p, s, m in triples]

@@ -25,6 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import cpu_threads
 from . import local_node as LN
 
 HOST = "host"
@@ -107,18 +108,20 @@ class TallyEngine:
         device in one copy; v-blocking or ratified, read back as a bool."""
         from ..ops import quorum as Q
 
-        dev_rows = torch.from_numpy(rows).to(self.device)
-        vblock = Q.is_v_blocking(local_qs, dev_rows[0:1])[0]
-        ratified = Q.federated_ratify(local_qs, qsets, dev_rows[1:2])[0]
-        return bool(vblock | ratified)
+        with cpu_threads(self.device):
+            dev_rows = torch.from_numpy(rows).to(self.device)
+            vblock = Q.is_v_blocking(local_qs, dev_rows[0:1])[0]
+            ratified = Q.federated_ratify(local_qs, qsets, dev_rows[1:2])[0]
+            return bool(vblock | ratified)
 
     def device_ratify(self, local_qs, qsets, rows: np.ndarray) -> bool:
         """Host row (1, N) bool — voted — to the device in one copy;
         ratified, read back as a bool."""
         from ..ops import quorum as Q
 
-        dev_rows = torch.from_numpy(rows).to(self.device)
-        return bool(Q.federated_ratify(local_qs, qsets, dev_rows)[0])
+        with cpu_threads(self.device):
+            dev_rows = torch.from_numpy(rows).to(self.device)
+            return bool(Q.federated_ratify(local_qs, qsets, dev_rows)[0])
 
     # -- tallies ------------------------------------------------------------
 

@@ -185,8 +185,10 @@ class MetricsRegistry:
         # below could each create the metric and one would silently
         # lose its updates.  Reads stay lock-free: iteration always
         # goes through sorted(...) whose list materialization is
-        # GIL-atomic.
-        self._reg_lock = register_lock(threading.Lock(), "metrics.registry")
+        # GIL-atomic.  Re-entrant: any allocation under the lock may
+        # start a collection, whose gc callbacks (utils/vitals) register
+        # metrics on the same thread; a plain Lock deadlocked there.
+        self._reg_lock = register_lock(threading.RLock(), "metrics.registry")
 
     def _get(self, name: str, cls, *args):
         m = self._metrics.get(name)
@@ -194,7 +196,8 @@ class MetricsRegistry:
             with self._reg_lock:
                 m = self._metrics.get(name)
                 if m is None:
-                    m = self._metrics[name] = cls(*args)
+                    # a gc callback inside cls() may register it first
+                    m = self._metrics.setdefault(name, cls(*args))
         assert isinstance(m, cls), f"{name} registered as {type(m).__name__}"
         return m
 

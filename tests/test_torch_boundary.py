@@ -40,9 +40,17 @@ def _imported_names(path):
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 12
+    # importing ``__main__`` runs the command line: its ``version``
     prog = ("import sys\n"
             f"for m in {mods!r}:\n"
-            "    __import__(m)\n"
+            "    if m.endswith('.__main__'):\n"
+            "        sys.argv = [m, 'version']\n"
+            "        try:\n"
+            "            __import__(m)\n"
+            "        except SystemExit as e:\n"
+            "            assert e.code == 0, e.code\n"
+            "    else:\n"
+            "        __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'stellar_core_tpu' or "
             "m.startswith('stellar_core_tpu.'))\n"
@@ -50,6 +58,46 @@ def test_importing_every_port_module_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", prog], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+@pytest.mark.parametrize("route", ["plain_verify", "admission_step"])
+def test_cpu_routes_run_on_one_thread_and_restore_the_callers_count(
+        route, monkeypatch):
+    """The port's CPU policy (``utils.device.cpu_threads``): a CPU tensor
+    route runs on one intra-op thread, re-entrantly, and gives the
+    caller's thread count back; a non-CPU device is left alone."""
+    import torch
+
+    from stellar_core_tpu_torch.models import admission
+    from stellar_core_tpu_torch.ops import ed25519_kernel
+    from stellar_core_tpu_torch.utils.device import cpu_threads
+
+    seen = []
+    if route == "plain_verify":
+        real = ed25519_kernel._verify_impl
+        monkeypatch.setattr(ed25519_kernel, "_verify_impl", lambda *a: (
+            seen.append(torch.get_num_threads()), real(*a))[1])
+    else:
+        real = admission.Q.federated_ratify
+        monkeypatch.setattr(admission.Q, "federated_ratify", lambda *a: (
+            seen.append(torch.get_num_threads()), real(*a))[1])
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(3)
+        (batch,) = admission.example_batch(n_sigs=4, n_nodes=4,
+                                           device="cpu")
+        sig_ok, _, _ = admission.admission_step(batch)
+        assert bool(sig_ok.all())
+        assert seen == [1] and torch.get_num_threads() == 3
+        with cpu_threads(torch.device("cuda")):
+            assert torch.get_num_threads() == 3
+        with cpu_threads("cpu"):
+            with cpu_threads("cpu"):
+                assert torch.get_num_threads() == 1
+            assert torch.get_num_threads() == 1
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))

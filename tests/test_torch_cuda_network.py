@@ -22,9 +22,10 @@ Tolerance: exact (verdicts, counts, hashes, digests)."""
 import pytest
 import torch
 
-from chip_smoke import run_network, settle, triple_columns
+from chip_smoke import run_network, settle
 from stellar_core_tpu_torch.main import Application
 from stellar_core_tpu_torch.main.config import test_config as node_config
+from stellar_core_tpu_torch.utils.device import signature_columns
 from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
 from stellar_core_tpu_torch.scp.slot import EnvelopeState
 from stellar_core_tpu_torch.simulation import core
@@ -85,7 +86,7 @@ def test_network_phase_at_3x3_on_card():
     # the kernel equals its plain version on every distinct triple that
     # the launched overlay batches carried, the forged one among them
     rows = [torch.as_tensor(c, device=dev)
-            for c in triple_columns(a["launched_triples"])]
+            for c in signature_columns(a["launched_triples"])]
     want = ed25519_kernel.verify_batch(*rows)
     assert torch.equal(ed25519_cuda.verify_batch(*rows), want)
     assert int((~want).sum()) >= 1
