@@ -22,7 +22,8 @@ Phases (each prints one JSON line):
   5. scp     — live SCP consensus (BASELINE config #5): 64 port ``SCP``
                instances on the same topology as XDR quorum sets, each
                with ``tally_backend="both"`` on the card, nominate and
-               externalize 2 slots over an all-to-all bus; each delivery round's envelope signatures
+               externalize 1 slot (2 before this cut) over an all-to-all
+               bus; each delivery round's envelope signatures
                (plus one forged copy) go through the verify kernel as one
                padded batch.  Every node must externalize one common
                value per slot, no tensor tally may differ from the host
@@ -76,7 +77,7 @@ Phases (each prints one JSON line):
                overlay batch that held the forged envelope; the phase stays
                within 150 s;
   9. bench   — the port's headline bench (``stellar_core_tpu_torch.bench``)
-               at 100,000 signatures and 4 closes a shape (its default 24,
+               at 100,000 signatures and 2 closes a shape (its default 24,
                cut): config #2's LoadGenerator payments through
                ``TxSetFrame.make_from_wire`` and ``collect_signature_batch``,
                padded to 131,072 rows, through the kernel (every verdict
@@ -97,7 +98,30 @@ Phases (each prints one JSON line):
                true``; both close 3 more ledgers with one header hash, and
                each launched the kernel for its overlay batches and its
                closes (``/metrics``); the children are killed on exit;
- 12. times   — CUDA-event times (warm-up excluded) with the card's name
+ 12. catchup — BASELINE config #4, the herder's ledger-close replay of a
+               catchup history range: a ``cpu``-backend publisher with
+               1,000 accounts archives 3 checkpoints of 8 ledgers (16
+               ledgers of 1,000 payments, a peer's 1,000-payment set with
+               every 100th signature forged, empty ledgers); cold joiner A
+               (complete, ``CRYPTO_BACKEND="cuda"`` on the card), B
+               (complete, ``"cpu"``) and C (minimal to the forged ledger,
+               ``"cuda"``) catch up through ``CatchupWork``: every joiner
+               equals the publisher in every header and bucket-list hash,
+               each replayed ledger with signatures is one launch on a
+               ``cuda`` joiner, A's forged-ledger results equal B's, the
+               kernel equals its plain version on A's forged batch; the
+               replay ledgers/s and the verify phase of each joiner;
+ 13. chaos   — ``chaos_bench``'s core-4 tier through ``partition_heal``,
+               ``flaky_links`` and ``equivocator`` at seed 11, twice on the
+               card (``"cuda"``, ``"both"`` tallies; the first with a forged
+               envelope in every node's inbox, refused) and once on a
+               ``"cpu"`` / ``"host"`` twin: all three fingerprints equal the
+               JAX package's, no tally mismatch, the kernel equal to its
+               plain version on every distinct triple it verified;
+ 14. fuzz    — ``verify_repro`` of both ``traces/FUZZ_REPRO_*.json`` with
+               the executor's networks on the card (``"cuda"``, ``"both"``):
+               each reproduces its committed class and fingerprint;
+ 15. times   — CUDA-event times (warm-up excluded) with the card's name
                and power limit: the kernel, ``admission_step``, one
                recorded live tally call replayed, with the contraction
                trips, CUDA runtime calls and device kernels of one replay
@@ -125,7 +149,7 @@ N_ORGS, ORG_SIZE = 16, 4   # 64 validators (BASELINE config #5)
 TOP_THR, INNER_THR = 11, 3
 N_CANDIDATES = 64
 REPS = 5
-SCP_SLOTS = 2         # slots the 64-validator network externalizes
+SCP_SLOTS = 1         # slots the 64-validator network externalizes (was 2)
 LIVE_REPS = 50        # replays of one recorded live tally call
 QI_CLIQUES = (16, 24)     # twisted majority cliques (BASELINE config #3)
 QI_CLIQUE_SCANNED = {16: 4003, 24: 155039}   # the JAX package's counts
@@ -147,9 +171,25 @@ NET_PAYMENT_LEDGERS = 2   # ledgers of one payment per account
 NET_FORGE_SEQ = 3         # the slot whose drain gets one forged envelope
 NET_MAX_SECONDS = 150     # budget of the network phase
 NET_SETTLE_CRANKS = 1000  # cranks before a network counts as stuck
+CATCHUP_PAYMENT_LEDGERS = 16   # config #4: 1,000-payment ledgers published
+CATCHUP_CHECKPOINTS = 3        # checkpoints of 8 ledgers the archive holds
+CATCHUP_MAX_SECONDS = 120      # budget of one joiner's catchup
 BENCH_SIGNATURES = 100_000   # config #2, the bench's default
-BENCH_CLOSES = 4          # closes a shape (the bench's default 24, cut)
+BENCH_CLOSES = 2          # closes a shape (the bench's default 24, cut)
 BENCH_CLOSE_TXS = 1000    # config #1: 1,000-tx ledgers
+CHAOS_SCENARIOS = ("partition_heal", "flaky_links", "equivocator")
+CHAOS_SEED = 11           # chaos_bench's default seed
+CHAOS_FORGE_SEQ = 2       # the slot whose drains get one forged envelope
+# the JAX package's core-4 fingerprints at CHAOS_SEED
+# (tests/test_torch_chaos.py holds them to it)
+CHAOS_FINGERPRINTS = {
+    "partition_heal":
+        "d1ac534ad75734744f78cd525cb6db113aed2bdab9152a1d62bcc7eca5af4c66",
+    "flaky_links":
+        "ac55ee080dccfc6038c6d50e9d83b4098c1875d32b6dcfd02c4d6da6fefbc57d",
+    "equivocator":
+        "4b5fc802a250d5d9be6bb1cdeb43f0c51bbbaec1881e26a0a2926898ec5dd0e5",
+}
 CLI_PASSPHRASE = "tcp process test net"
 CLI_ACCOUNTS = 100        # generateload accounts, and payments
 CLI_LEDGERS = 3           # ledgers both CLI nodes close after the traffic
@@ -926,13 +966,14 @@ def forge_envelope(env):
             tx=v1.tx, signatures=[forged] + list(v1.signatures[1:])))
 
 
-def node_app(crypto_backend: str, device=None, max_tx_set=NODE_ACCOUNTS):
+def node_app(crypto_backend: str, device=None, max_tx_set=NODE_ACCOUNTS,
+             **config_kw):
     """A started port standalone node (``test_config``: MANUAL_CLOSE, an
     in-memory database, the virtual clock) with the node's default
     parallel apply, pipelined close, invariants and native settings and
-    ``max_tx_set`` operations a ledger.  ``crypto_backend="cuda"`` runs
-    the close's signature batch and the SCP tallies on ``device``;
-    ``"cpu"`` is the host reference node."""
+    ``max_tx_set`` operations a ledger (``config_kw``: further settings).
+    ``crypto_backend="cuda"`` runs the close's signature batch and the SCP
+    tallies on ``device``; ``"cpu"`` is the host reference node."""
     from stellar_core_tpu_torch.main import Application, Config, test_config
     from stellar_core_tpu_torch.utils.clock import ClockMode, VirtualClock
 
@@ -943,7 +984,7 @@ def node_app(crypto_backend: str, device=None, max_tx_set=NODE_ACCOUNTS):
         TESTING_UPGRADE_MAX_TX_SET_SIZE=max_tx_set,
         PARALLEL_APPLY_WORKERS=node_defaults.PARALLEL_APPLY_WORKERS,
         PIPELINED_CLOSE=node_defaults.PIPELINED_CLOSE,
-        INVARIANT_CHECKS=node_defaults.INVARIANT_CHECKS)
+        INVARIANT_CHECKS=node_defaults.INVARIANT_CHECKS, **config_kw)
     app = Application(VirtualClock(ClockMode.VIRTUAL_TIME), cfg,
                       device=device)
     app.start()
@@ -1291,6 +1332,306 @@ def node_phase(card_line: str, dev) -> int:
     return launches
 
 
+# -- catchup replay (BASELINE config #4) -------------------------------------
+
+class ReplayProbe(CloseProbe):
+    """``CloseProbe`` over every close of a catchup's replay: one record a
+    close (its seq, the wrapper's calls with their padded rows, the
+    triples its verdicts answered, host verifies, the kernel's launches by
+    its own count, the phases' ms and the close's seconds); the results
+    and the batch of the close of ``watch_seq`` are kept."""
+
+    def __init__(self, app, watch_seq: int):
+        super().__init__(app)
+        self.watch_seq = watch_seq
+        self.records: list = []
+        self.watch_results = self.watch_batch = None
+
+    def _close(self, real):
+        inner = super()._close(real)
+
+        def close_ledger(close_data):
+            self.reset()
+            launches0 = self.ops.launches
+            t0 = time.perf_counter()
+            out = inner(close_data)
+            seconds = time.perf_counter() - t0
+            seq = close_data.ledger_seq
+            self.records.append({
+                "seq": seq, "batches": list(self.batches),
+                "triples": len(self.answered),
+                "host_verifies": self.host_verifies,
+                "launches": self.ops.launches - launches0,
+                "phases_ms": close_phases(self.app), "seconds": seconds})
+            if seq == self.watch_seq:
+                self.watch_results = close_results(self.app)
+                self.watch_batch = self.last_batch if self.batches else None
+            return out
+        return close_ledger
+
+
+def run_catchup(device, archive_dir: str, n_accounts=NODE_ACCOUNTS,
+                payment_ledgers=CATCHUP_PAYMENT_LEDGERS,
+                forge_every=NODE_FORGE_EVERY, checkpoints=CATCHUP_CHECKPOINTS,
+                minimal_to=None, emit_line=None) -> dict:
+    """BASELINE config #4, the herder's ledger-close replay of a catchup
+    history range, on the port.  A standalone ``cpu``-backend publisher
+    (``node_app``, the accelerated test config's checkpoints of 8 ledgers)
+    publishes to a local archive in ``archive_dir``: one ledger in which
+    the root creates ``n_accounts`` accounts (transactions of
+    ``NODE_CREATE_OPS`` ops), ``payment_ledgers`` ledgers of one payment
+    per account through ``recv_transaction`` and ``manual_close()``, a
+    peer's set of one payment per account with every ``forge_every``-th
+    signature forged through ``close_ledger`` (``make_from_wire``), then
+    empty ledgers up to the end of checkpoint ``checkpoints``.  Three cold
+    nodes catch up from the archive through ``CatchupWork``: A complete on
+    ``CRYPTO_BACKEND="cuda"`` with ``device``, B complete on ``"cpu"``, C
+    minimal on ``"cuda"`` to ``minimal_to`` (default the forged ledger:
+    buckets at the checkpoint before it, then the replay of the rest),
+    each with the process's host verify cache emptied first, as a fresh
+    node's is.
+    Checks: each joiner's stored header hashes and bucket-list hashes equal
+    the publisher's at every seq they share, and its live bucket list the
+    publisher's at its last ledger; on ``"cuda"`` every replayed ledger
+    with signatures is one wrapper call on its ``SIG_BATCH_BUCKETS`` size
+    whose verdicts answer every signature (one kernel launch on a CUDA
+    device, the plain version on a CPU one), with no host verify, and every
+    other replayed ledger none; on ``"cpu"`` no wrapper call; A's and B's
+    results of the forged ledger equal the publisher's.  ``emit_line``
+    gets one dict for the publisher and one a joiner.  Returns the run's
+    numbers."""
+    from stellar_core_tpu_torch.catchup import (CatchupConfiguration,
+                                                CatchupWork)
+    from stellar_core_tpu_torch.crypto import ed25519 as ed
+    from stellar_core_tpu_torch.crypto import sha256
+    from stellar_core_tpu_torch.herder.tx_queue import TransactionQueue
+    from stellar_core_tpu_torch.herder.tx_set import TxSetFrame
+    from stellar_core_tpu_torch.history import HistoryArchive
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+    from stellar_core_tpu_torch.simulation.simulation import app_header_chain
+    from stellar_core_tpu_torch.utils.device import pad_signature_batch
+    from stellar_core_tpu_torch.work.work import State
+    from stellar_core_tpu_torch.xdr import types as T
+
+    emit_line = emit_line or (lambda line: None)
+    archive = {"HISTORY_ARCHIVES": [("config4", archive_dir)]}
+    pending = TransactionQueue.ADD_STATUS_PENDING
+    t0 = time.perf_counter()
+    pub = node_app("cpu", max_tx_set=n_accounts, **archive)
+    lm = pub.ledger_manager
+    last = checkpoints * pub.history_manager.checkpoint_frequency() - 1
+    accounts = [Account.named(pub, b"node-account-%d" % i)
+                for i in range(n_accounts)]
+    sigs: dict = {}     # seq -> signatures of each ledger that has any
+
+    def submit_and_close(envs) -> None:
+        got = [pub.herder.recv_transaction(env) for env in envs]
+        if got != [pending] * len(envs):
+            raise AssertionError(f"publisher admission statuses: {got}")
+        pub.herder.manual_close()
+        sigs[lm.last_closed_seq()] = len(envs)
+
+    root = Account.root(pub)
+    seq = root.next_seq()
+    submit_and_close([root.tx([root.op_create_account(acct.account_id, 10**10)
+                               for acct in accounts[i:i + NODE_CREATE_OPS]],
+                              seq=seq + k)
+                      for k, i in enumerate(range(0, n_accounts,
+                                                  NODE_CREATE_OPS))])
+
+    def payments():
+        return [acct.tx([acct.op_payment(
+            accounts[(i + 1) % n_accounts].account_id, 1 + i)])
+            for i, acct in enumerate(accounts)]
+
+    for _ in range(payment_ledgers):
+        submit_and_close(payments())
+    forged = set(range(forge_every - 1, n_accounts, forge_every))
+    envs = [forge_envelope(env) if i in forged else env
+            for i, env in enumerate(payments())]
+    close_peer_set(pub, T, TxSetFrame, LedgerCloseData, envs)
+    forged_seq = lm.last_closed_seq()
+    sigs[forged_seq] = len(envs)
+    forged_results = close_results(pub)
+    if [c for c, _ in forged_results].count("txBAD_AUTH") != len(forged):
+        raise AssertionError(f"publisher's forged ledger: {forged_results}")
+    while lm.last_closed_seq() < last:
+        pub.herder.manual_close()
+    has = HistoryArchive("config4", archive_dir).get_root_has()
+    if lm.last_closed_seq() != last or has is None or \
+            has.current_ledger != last:
+        raise AssertionError(f"publisher at {lm.last_closed_seq()}, archive "
+                             f"at {has and has.current_ledger}, not {last}")
+    chain = app_header_chain(pub)
+    out = {"publisher": {
+        "phase": "catchup", "role": "publisher", "lcl": last,
+        "checkpoints": checkpoints, "accounts": n_accounts,
+        "signed_ledgers": sorted(sigs), "signatures": sigs,
+        "forged_seq": forged_seq, "forged": len(forged),
+        "seconds": time.perf_counter() - t0}, "joiners": {}}
+    emit_line(out["publisher"])
+
+    def join(tag: str, backend: str, mode: str, to: int) -> None:
+        t0 = time.perf_counter()
+        app = node_app(backend, device if backend == "cuda" else None,
+                       max_tx_set=n_accounts,
+                       NODE_SEED=sha256(b"catchup-joiner-" + tag.encode()),
+                       **archive)
+        work = CatchupWork(app, app.history_manager.archives[0],
+                           CatchupConfiguration(to, mode))
+        probe = ReplayProbe(app, forged_seq)
+        launches0 = ed25519_cuda.launches
+        # a cold node's host verify cache never saw the archived
+        # signatures (this process's publisher verified them all)
+        ed.clear_verify_cache()
+        t1 = time.perf_counter()
+        with probe:
+            app.work_scheduler.schedule(work)
+            while not work.done:
+                if time.perf_counter() - t1 > CATCHUP_MAX_SECONDS:
+                    raise AssertionError(f"joiner {tag} still catching up "
+                                         f"after {CATCHUP_MAX_SECONDS} s")
+                app.clock.set_current_virtual_time(app.clock.now() + 0.01)
+                app.crank(block=False)
+        catchup_s = time.perf_counter() - t1
+        if work.state != State.SUCCESS or \
+                app.ledger_manager.last_closed_seq() != to:
+            raise AssertionError(f"joiner {tag}: {work.state.name} at "
+                                 f"{app.ledger_manager.last_closed_seq()}")
+        mine = app_header_chain(app)
+        shared = sorted(mine.keys() & chain.keys())
+        if to not in shared or any(mine[s] != chain[s] for s in shared) or \
+                app.bucket_manager.get_bucket_list_hash() != chain[to][1]:
+            raise AssertionError(f"joiner {tag} differs from the publisher")
+        on_cuda = backend == "cuda"
+        on_card = on_cuda and app.device.type == "cuda"
+        for r in probe.records:
+            n = sigs.get(r["seq"], 0)
+            want = [pad_signature_batch(n)] if on_cuda and n else []
+            if r["batches"] != want or \
+                    r["launches"] != (len(want) if on_card else 0) or \
+                    (on_cuda and (r["triples"] != n or r["host_verifies"])):
+                raise AssertionError(f"joiner {tag}, replayed ledger: {r}")
+        if forged_seq in {r["seq"] for r in probe.records} and \
+                probe.watch_results != forged_results:
+            raise AssertionError(f"joiner {tag}: the forged ledger's "
+                                 f"results {probe.watch_results}")
+        signed = [r for r in probe.records if r["seq"] in sigs]
+        replayed = app.metrics.counter("catchup.ledger.replayed").count
+        timer = app.metrics.timer("catchup.phase.replay")
+        replay_s = timer.mean * timer.count
+        verify_ms = [r["phases_ms"]["verify"] for r in signed]
+        line = {"phase": "catchup", "role": "joiner", "joiner": tag,
+                "mode": mode, "backend": backend,
+                "device": str(app.device) if on_cuda else None,
+                "to": to, "lcl": app.ledger_manager.last_closed_seq(),
+                "replayed": replayed,
+                "replayed_seqs": [probe.records[0]["seq"],
+                                  probe.records[-1]["seq"]]
+                if probe.records else [],
+                "shared_seqs_equal": len(shared),
+                "batches": [r["batches"] for r in signed],
+                "launches": ed25519_cuda.launches - launches0,
+                "host_verifies": sum(r["host_verifies"] for r in signed),
+                "verify_cache_hits_misses": list(ed.verify_cache_stats()),
+                "verify_ms": verify_ms,
+                "verify_ms_median": float(np.median(verify_ms))
+                if verify_ms else None,
+                "phases_ms_median": {
+                    k: float(np.median([r["phases_ms"][k] or 0.0
+                                        for r in signed]))
+                    for k in NODE_PHASES} if signed else None,
+                "replay_seconds": replay_s,
+                "replay_ledgers_per_s": replayed / replay_s
+                if replay_s else None,
+                "catchup_seconds": catchup_s,
+                "build_seconds": t1 - t0,
+                "forged_results": [c for c, _ in probe.watch_results]
+                if probe.watch_results else None,
+                "equal_to_publisher": True}
+        emit_line(line)
+        out["joiners"][tag] = dict(line, kept_batch=probe.watch_batch,
+                                   app=app)
+
+    join("A", "cuda", CatchupConfiguration.COMPLETE, last)
+    join("B", "cpu", CatchupConfiguration.COMPLETE, last)
+    join("C", "cuda", CatchupConfiguration.MINIMAL,
+         forged_seq if minimal_to is None else minimal_to)
+    return out
+
+
+def catchup_phase(card_line: str, dev) -> int:
+    """The ``catchup`` phase: ``run_catchup`` at BASELINE config #4's
+    ledger width (1,000 payments a ledger) with joiners A and C on ``dev``,
+    the verify kernel's launches counted from 0: each ``cuda`` joiner
+    launches once a replayed ledger with signatures; the kernel held
+    against its plain version on A's batch of the forged ledger, and that
+    batch replayed by CUDA events.  Prints its lines; returns the
+    launches.  Raises on any failed check."""
+    import tempfile
+
+    from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
+
+    t0 = time.perf_counter()
+    emit({"phase": "catchup", "card": card_line, "accounts": NODE_ACCOUNTS,
+          "txs_per_ledger": NODE_ACCOUNTS,
+          "payment_ledgers": CATCHUP_PAYMENT_LEDGERS,
+          "forge_every": NODE_FORGE_EVERY,
+          "checkpoints": CATCHUP_CHECKPOINTS,
+          "reduced": {"range_ledgers": {
+              "here": "3 checkpoints of 8 (the accelerated test config)",
+              "real_checkpoint": 64, "r17_bench_range": 990}}})
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = run_catchup(dev, tmp, emit_line=emit)
+    torch.cuda.synchronize()
+    launches = ed25519_cuda.launches
+    a, b, c = (run["joiners"][k] for k in "ABC")
+    signed = run["publisher"]["signed_ledgers"]
+    first, last = c["replayed_seqs"] or (0, -1)
+    c_signed = [s for s in signed if first <= s <= last]
+    if a["launches"] != len(signed) or c["launches"] != len(c_signed) or \
+            launches != a["launches"] + c["launches"] or b["launches"]:
+        raise AssertionError(f"{launches} verify launches: A {a['launches']}"
+                             f", B {b['launches']}, C {c['launches']} for "
+                             f"signed ledgers {signed}")
+    if a["forged_results"] != b["forged_results"]:
+        raise AssertionError("joiners A and B differ on the forged ledger")
+    batch = a["kept_batch"]
+    got = ed25519_cuda.verify_batch(*batch)
+    want = ed25519_kernel.verify_batch(*batch)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"the kernel differs from the plain version on the forged "
+            f"ledger's batch in {int((got != want).sum())} of "
+            f"{got.shape[0]} rows")
+    kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*batch))
+    plain_ms = cuda_ms(lambda: ed25519_kernel.verify_batch(*batch), reps=1)
+    emit({"phase": "catchup", "card": card_line, "launches": launches,
+          "launches_by_joiner": {k: run["joiners"][k]["launches"]
+                                 for k in "ABC"},
+          "padded_rows": sorted({r for j in (a, c) for rows in j["batches"]
+                                 for r in rows}),
+          "replay_ledgers_per_s": {k: run["joiners"][k]["replay_ledgers_per_s"]
+                                   for k in "ABC"},
+          "verify_ms_median": {k: run["joiners"][k]["verify_ms_median"]
+                               for k in "ABC"},
+          **{f"{name}_ms_median": {
+              k: run["joiners"][k]["phases_ms_median"][name] for k in "ABC"}
+             for name in ("total", "apply", "commit")},
+          "forged_bad_auth": a["forged_results"].count("txBAD_AUTH"),
+          "kernel_equal_to_plain_on_batch": True,
+          "batch_rows_false": int((~want).sum()),
+          "kernel_ms_replayed": kernel_ms, "plain_ms_replayed": plain_ms,
+          "kernel_rows_replayed": int(batch[0].shape[0]),
+          "equal_to_publisher": True,
+          "publisher_seconds": run["publisher"]["seconds"],
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # -- the network: 21 validators reach consensus over the loopback overlay ----
 
 def settle(sim) -> None:
@@ -1319,8 +1660,9 @@ class NetworkProbe:
     seconds spent inside each seam (a batch's packing, copies, launch and
     readback, or its host verifies; a whole close).  The wrapper
     inputs of the overlay batch that held the triple of ``forged`` (a
-    ``ForgedEnvelope``) are kept for a replay, and every distinct triple
-    that a launched overlay batch carried, in order of arrival."""
+    ``ForgedEnvelope``, or None) are kept for a replay, every distinct
+    triple that a launched overlay batch carried, in order of arrival, and
+    the false verdicts of those batches."""
 
     def __init__(self, forged):
         from stellar_core_tpu_torch.ledger.ledger_manager import LedgerManager
@@ -1331,6 +1673,7 @@ class NetworkProbe:
         self.batches: list = []   # (triples, well formed, launches, padded)
         self.closes: list = []    # launches of each close
         self.verify_seconds = self.close_seconds = 0.0
+        self.false_verdicts = 0   # of the triples of launched batches
         self.forged = forged
         self.kept = None
         self.triples: dict = {}   # distinct triples of launched batches
@@ -1355,7 +1698,9 @@ class NetworkProbe:
                                  [int(i[0].shape[0]) for i in self._inputs]))
             if launches:
                 self.triples.update(dict.fromkeys(triples))
-            if self.forged.triple in triples and self._inputs:
+                self.false_verdicts += out.count(False)
+            if self.forged is not None and self.forged.triple in triples \
+                    and self._inputs:
                 self.kept = self._inputs[-1]
             return out
         return verify_triples
@@ -1719,6 +2064,7 @@ def bench_phase(card_line: str, dev) -> tuple[int, tuple]:
           "signatures": BENCH_SIGNATURES, "closes_per_shape": BENCH_CLOSES,
           "close_txs": BENCH_CLOSE_TXS,
           "reduced": {"closes_per_shape": {"bench_default": 24,
+                                           "before": 4,
                                            "here": BENCH_CLOSES}},
           "seconds": time.perf_counter() - t0})
     gc.collect()
@@ -1986,6 +2332,179 @@ def cli_phase(card_line: str) -> int:
     emit({"phase": "cli", "card": card_line, **out,
           "launches_per_node": per_node})
     return sum(per_node)
+
+
+# -- chaos and fuzz: the network's fault harnesses on the card --------------
+
+def run_chaos(scenario: str, device, forge: bool, **node) -> dict:
+    """``chaos_bench``'s core-4 tier (``core(4)``, pipelined close, free
+    running) through ``scenario`` at ``CHAOS_SEED`` with the node keywords
+    ``node`` on ``device``, under a ``NetworkProbe`` and a ``TallyProbe``;
+    with ``forge``, every node's inbox gets one forged envelope during slot
+    ``CHAOS_FORGE_SEQ`` (``ForgedEnvelope``), which every node must prime
+    False and refuse.  Raises on a failed oracle, a tally that differs from
+    the host oracle (``TallyMismatch``) or a forged envelope that was not
+    refused.  Returns the report with the probes' counts."""
+    import tempfile
+
+    from stellar_core_tpu_torch.scp.scp import EnvelopeState
+    from stellar_core_tpu_torch.scp.tally import TallyEngine, TallyMismatch
+    from stellar_core_tpu_torch.simulation.chaos import run_standard_scenario
+    from stellar_core_tpu_torch.tools.chaos_bench import TIERS
+
+    factory, n_nodes, duration = TIERS["core4"]
+    forged: list = []
+
+    def make_sim(d):
+        sim = factory(d, device=device, **node)
+        if forge:
+            forged.extend(ForgedEnvelope(app, CHAOS_FORGE_SEQ)
+                          for app in sim.nodes.values())
+        return sim
+
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d, NetworkProbe(None) as probe, \
+                TallyProbe(TallyEngine) as tallies:
+            rep = run_standard_scenario(
+                lambda: make_sim(d), scenario, seed=CHAOS_SEED,
+                n_nodes=n_nodes, duration=duration, forensics_dir=d)
+    except TallyMismatch as e:
+        raise AssertionError(f"{scenario}: tensor tally != host oracle: "
+                             f"{e}") from e
+    refused = [f.env is not None and f.primed is False and
+               f.state == EnvelopeState.INVALID for f in forged]
+    if not all(refused):
+        raise AssertionError(f"{scenario}: a forged envelope was not "
+                             f"injected and refused: {refused}")
+    if rep["fork_check"] != "pass":
+        raise AssertionError(f"{scenario}: fork check {rep['fork_check']}")
+    batches = probe.batches
+    return {"scenario": scenario, "fingerprint": rep["fingerprint"],
+            "ledgers_closed": rep["ledgers_closed"],
+            "time_to_heal_s": rep["time_to_heal_s"],
+            "counters": rep["counters"],
+            "overlay_batches": len(batches),
+            "overlay_launches": sum(b[2] for b in batches),
+            "overlay_padded": sorted({r for b in batches for r in b[3]}),
+            "close_launches": sum(probe.closes),
+            "false_verdicts": probe.false_verdicts,
+            "forged_refused": len(forged),
+            "tally_calls": sum(tallies.calls.values()),
+            "triples": list(probe.triples),
+            "seconds": time.perf_counter() - t0}
+
+
+def chaos_phase(card_line: str, dev) -> int:
+    """The ``chaos`` phase: each of ``CHAOS_SCENARIOS`` runs twice on the
+    card (``CRYPTO_BACKEND="cuda"``, ``"both"`` tallies on ``dev``; the
+    first with a forged envelope in every node's inbox) and once on a
+    ``"cpu"`` / ``"host"`` twin; the three fingerprints must equal the JAX
+    package's for the same seed (``CHAOS_FINGERPRINTS``, held by
+    ``tests/test_torch_chaos.py``), every forged envelope must be refused,
+    and every launched batch's verdicts must equal the plain version's.
+    Prints one line a scenario; returns the card runs' launches."""
+    from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
+    from stellar_core_tpu_torch.utils.device import signature_columns
+
+    t_phase = time.perf_counter()
+    emit({"phase": "chaos", "card": card_line, "tier": "core4",
+          "scenarios": list(CHAOS_SCENARIOS), "seed": CHAOS_SEED,
+          "forge_seq": CHAOS_FORGE_SEQ})
+    card = {"CRYPTO_BACKEND": "cuda", "SCP_TALLY_BACKEND": "both"}
+    total = 0
+    for scenario in CHAOS_SCENARIOS:
+        torch.cuda.synchronize()
+        ed25519_cuda.reset_launches()
+        runs = [run_chaos(scenario, dev, True, **card),
+                run_chaos(scenario, dev, False, **card)]
+        torch.cuda.synchronize()
+        launches = ed25519_cuda.launches
+        twin = run_chaos(scenario, "cpu", False, CRYPTO_BACKEND="cpu",
+                         SCP_TALLY_BACKEND="host")
+        fps = [r["fingerprint"] for r in runs + [twin]]
+        if set(fps) != {CHAOS_FINGERPRINTS[scenario]}:
+            raise AssertionError(f"{scenario}: fingerprints {fps}, the JAX "
+                                 f"package's {CHAOS_FINGERPRINTS[scenario]}")
+        counted = sum(r["overlay_launches"] + r["close_launches"]
+                      for r in runs)
+        if launches < 1 or launches != counted or twin["overlay_launches"]:
+            raise AssertionError(f"{scenario}: {launches} launches, "
+                                 f"{counted} counted by the probe")
+        # every distinct triple the card's batches carried, kernel against
+        # plain: these launches come after the count was read
+        rows = [torch.as_tensor(c, device=dev) for c in signature_columns(
+            list(dict.fromkeys(runs[0]["triples"] + runs[1]["triples"])))]
+        got = ed25519_cuda.verify_batch(*rows)
+        want = ed25519_kernel.verify_batch(*rows)
+        if not torch.equal(got, want) or int((~want).sum()) < 1:
+            raise AssertionError(f"{scenario}: the kernel differs from the "
+                                 "plain version, or no forged triple")
+        total += launches
+        emit({"phase": "chaos", "scenario": scenario,
+              "fingerprint": fps[0], "equal_to_jax_and_cpu_twin": True,
+              "launches": launches,
+              **{key: [r[key] for r in runs] for key in (
+                  "ledgers_closed", "time_to_heal_s", "overlay_batches",
+                  "overlay_launches", "overlay_padded", "close_launches",
+                  "false_verdicts", "forged_refused", "tally_calls",
+                  "seconds")},
+              "counters": runs[0]["counters"], "tally_mismatches": 0,
+              "kernel_equal_to_plain_on_distinct_triples": True,
+              "distinct_triples": int(rows[0].shape[0]),
+              "distinct_triples_false": int((~want).sum()),
+              "cpu_twin_seconds": twin["seconds"]})
+    emit({"phase": "chaos", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+def fuzz_phase(card_line: str, dev) -> int:
+    """The ``fuzz`` phase: ``verify_repro`` of every committed
+    ``traces/FUZZ_REPRO_*.json`` with its networks on the card
+    (``run_schedule`` with ``device=dev``, ``CRYPTO_BACKEND="cuda"``,
+    ``"both"`` tallies); each must reproduce its committed failure class
+    and fingerprint.  Prints one line a repro; returns the launches."""
+    from pathlib import Path
+
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+    from stellar_core_tpu_torch.scp.tally import TallyEngine
+    from stellar_core_tpu_torch.simulation.fuzz.executor import run_schedule
+    from stellar_core_tpu_torch.simulation.fuzz.minimize import verify_repro
+    from stellar_core_tpu_torch.simulation.fuzz.schedule import load_schedule
+
+    repros = sorted((Path(__file__).resolve().parent / "traces").glob(
+        "FUZZ_REPRO_*.json"))
+    if len(repros) < 2:
+        raise AssertionError(f"repro artifacts: {repros}")
+    run = functools.partial(run_schedule, device=dev, CRYPTO_BACKEND="cuda",
+                            SCP_TALLY_BACKEND="both")
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    t_phase = time.perf_counter()
+    for path in repros:
+        doc = load_schedule(str(path))
+        launches0 = ed25519_cuda.launches
+        t0 = time.perf_counter()
+        with NetworkProbe(None) as probe, TallyProbe(TallyEngine) as tallies:
+            verdict = verify_repro(doc, run=run)
+        torch.cuda.synchronize()
+        launches = ed25519_cuda.launches - launches0
+        if not verdict["reproduced"] or launches < 1:
+            raise AssertionError(f"{path.name} on the card: {verdict}, "
+                                 f"{launches} launches")
+        emit({"phase": "fuzz", "card": card_line, "repro": path.name,
+              "reproduced": True, "got": verdict["got"],
+              "error": verdict["error"], "launches": launches,
+              "overlay_batches": len(probe.batches),
+              "false_verdicts": probe.false_verdicts,
+              "tally_calls": sum(tallies.calls.values()),
+              "seconds": time.perf_counter() - t0})
+    torch.cuda.synchronize()
+    launches = ed25519_cuda.launches
+    emit({"phase": "fuzz", "repros": len(repros), "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def special_scalar_cases(ref, rng):
@@ -2330,6 +2849,7 @@ def main() -> int:
           "forged_rows": stats["rounds"],
           "forged_refusals": stats["forged_refused"],
           "seconds_per_slot": slot_s, "seconds": scp_s,
+          "reduced": {"slots": {"before": 2, "here": SCP_SLOTS}},
           "tally_device_seconds": device_s, "tally_oracle_seconds": oracle_s,
           "tally_device_ms_per_call": device_s / tallies * 1e3,
           "tally_oracle_ms_per_call": oracle_s / tallies * 1e3})
@@ -2359,7 +2879,16 @@ def main() -> int:
     # -- 11. cli: two node processes over TCP, driven over HTTP --------------
     cli_launches = cli_phase(card_line)
 
-    # -- 12. times -----------------------------------------------------------
+    # -- 12. catchup: BASELINE config #4's replay ---------------------------
+    catchup_launches = catchup_phase(card_line, dev)
+
+    # -- 13. chaos: the scripted fault suite on core-4 -----------------------
+    chaos_launches = chaos_phase(card_line, dev)
+
+    # -- 14. fuzz: the committed repros on the card --------------------------
+    fuzz_launches = fuzz_phase(card_line, dev)
+
+    # -- 15. times -----------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)
@@ -2411,13 +2940,17 @@ def main() -> int:
         "replaces": "stellar_core_tpu/ops/ed25519_pallas.py:364",
         "launches": (launches + scp_launches + node_launches
                      + net_launches + net_close_launches + bench_launches
-                     + parallel_launches + cli_launches),
+                     + parallel_launches + cli_launches + catchup_launches
+                     + chaos_launches + fuzz_launches),
         "launches_by_path": {"admission": launches, "scp": scp_launches,
                              "node": node_launches, "network": net_launches,
                              "network_close": net_close_launches,
                              "bench": bench_launches,
                              "parallel": parallel_launches,
-                             "cli": cli_launches},
+                             "cli": cli_launches,
+                             "catchup": catchup_launches,
+                             "chaos": chaos_launches,
+                             "fuzz": fuzz_launches},
         "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_ms_ref10_count": ref10_ms,

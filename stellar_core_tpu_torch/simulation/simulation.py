@@ -254,15 +254,7 @@ class Simulation:
         """seq -> (header hash, bucketListHash) for every ledger the node
         has closed, read from its persisted header rows — the fork
         oracle's raw material."""
-        app = self.nodes[node_id]
-        out: Dict[int, tuple] = {}
-        for seq, data in app.database.execute(
-                "SELECT ledgerseq, data FROM ledgerheaders "
-                "ORDER BY ledgerseq").fetchall():
-            hdr = T.LedgerHeader.decode(data)
-            out[seq] = (xdr_sha256(T.LedgerHeader, hdr),
-                        hdr.bucketListHash)
-        return out
+        return app_header_chain(self.nodes[node_id])
 
     def assert_no_forks(self, node_ids: Optional[List[bytes]] = None
                         ) -> int:
@@ -304,6 +296,17 @@ def _ids(seeds: List[bytes]) -> List[bytes]:
 
 def _node_dir(base: Optional[str], i: int) -> Optional[str]:
     return None if base is None else os.path.join(base, f"node{i:03d}")
+
+
+def app_header_chain(app: Application) -> Dict[int, tuple]:
+    """``Simulation.header_chain`` of any node, in a simulation or not."""
+    out: Dict[int, tuple] = {}
+    for seq, data in app.database.execute(
+            "SELECT ledgerseq, data FROM ledgerheaders "
+            "ORDER BY ledgerseq").fetchall():
+        hdr = T.LedgerHeader.decode(data)
+        out[seq] = (xdr_sha256(T.LedgerHeader, hdr), hdr.bucketListHash)
+    return out
 
 
 def core(n: int, threshold: Optional[int] = None,

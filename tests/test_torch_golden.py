@@ -43,6 +43,15 @@ def _as_port_module(name: str, path: Path, **replace) -> types.ModuleType:
     return mod
 
 
+def _port_tests(mod: types.ModuleType) -> dict:
+    """The test functions and classes that ``mod``'s own text defines (a
+    test file run on the port by ``_as_port_module``), to collect in the
+    file that runs it; their marks go with them."""
+    return {name: obj for name, obj in vars(mod).items()
+            if name.startswith(("test_", "Test"))
+            and getattr(obj, "__module__", None) == mod.__name__}
+
+
 def golden_module() -> types.ModuleType:
     """``tests/test_golden_meta.py`` on the port: its ``SCENARIOS``,
     ``_app``, ``_digest`` and ``GOLDEN_PATH``."""

@@ -59,16 +59,20 @@ overlay/__init__.py overlay/peer.py overlay/peer_manager.py overlay/survey.py
 overlay/tcp_peer.py
 simulation/__init__.py simulation/observatory.py
 simulation/load_generator.py utils/xdrquery.py main/http_server.py
+simulation/chaos.py fuzzing.py simulation/fuzz/__init__.py
+simulation/fuzz/minimize.py simulation/fuzz/campaign.py
 """.split()
 
 # New code where the JAX package reaches for its device: the close's
 # signature batch, the overlay's per-crank envelope batch, the backend
-# switches, the node's device (and the simulation's), the native libraries'
+# switches, the node's device (and the simulation's, and the fuzz
+# executor's networks': tests/test_torch_fuzz.py), the native libraries'
 # build directory; the command line's own name.
 SEAMS = """
 crypto/__init__.py native/__init__.py herder/__init__.py herder/tx_set.py
 herder/herder.py ledger/ledger_manager.py main/config.py main/application.py
 overlay/manager.py simulation/simulation.py main/command_line.py __main__.py
+simulation/fuzz/schedule.py simulation/fuzz/executor.py
 """.split()
 
 # The command line names its program: the JAX text with these strings
