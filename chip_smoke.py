@@ -121,7 +121,20 @@ Phases (each prints one JSON line):
  14. fuzz    — ``verify_repro`` of both ``traces/FUZZ_REPRO_*.json`` with
                the executor's networks on the card (``"cuda"``, ``"both"``):
                each reproduces its committed class and fingerprint;
- 15. times   — CUDA-event times (warm-up excluded) with the card's name
+ 15. tools   — the port's benchmark tools (``stellar_core_tpu_torch.tools``)
+               in-process on the card: ``pipeline_bench``'s parity pass
+               (the carried workload pipeline on vs off on ``cuda`` nodes,
+               equal per close, its last ledger hash equal to a ``cpu``
+               node's), one ``parallel_apply_bench`` fingerprint (pay,
+               workers 2, 2 closes of 1,000 txs) on a ``cuda`` node equal
+               to a ``cpu`` node's, ``soak_bench`` at 100 tx/s for 10 s on
+               a ``cuda`` node (every submitted tx admitted and applied),
+               and ``scp_forensics_bench``'s induced-fork probe at seed 14
+               on a ``cuda`` core-4 network (attributed to the Byzantine
+               node, rerun byte-identical, the dump equal to the committed
+               ``FORENSICS_induced_fork_seed14.json``); each launched the
+               kernel;
+ 16. times   — CUDA-event times (warm-up excluded) with the card's name
                and power limit: the kernel, ``admission_step``, one
                recorded live tally call replayed, with the contraction
                trips, CUDA runtime calls and device kernels of one replay
@@ -157,8 +170,6 @@ QI_MAX_SECONDS = 60       # budget of each tier on a clique
 QI_ORGS, QI_CORE_ORGS, QI_LISTED = 260, 10, 250   # 1,040 nodes, each
                                                   # listing 1,000
 QI_MAX_CALLS = 30_000     # subproblems of the 1,040-node scan
-FP32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
 MAX_ROUNDS = 10_000   # delivery rounds before a network counts as stuck
 NODE_ACCOUNTS = 1000      # BASELINE config #1: 1k-payment TxSetFrame
 NODE_CREATE_OPS = 100     # CREATE_ACCOUNT ops in each seeding transaction
@@ -198,6 +209,12 @@ CLI_COUNTERS = ("overlay.sigbatch.batches", "overlay.sigbatch.envelopes",
                 "ledger.ledger.count")
 # a ``cuda`` node's gauge of the verify kernel's own launch counter
 CLI_LAUNCHES = "crypto.verify.kernel-launches"
+TOOLS_WORKERS = 2          # parallel apply workers of the tools' nodes
+TOOLS_APPLY_CLOSES = 2     # parallel_apply_bench's parity closes
+TOOLS_APPLY_TXS = 1000     # ... of 1,000 payments (its default)
+TOOLS_SOAK_RATE = 100.0    # soak_bench's default rate, tx/s
+TOOLS_SOAK_SECONDS = 10.0  # its default 200 s, cut
+TOOLS_SOAK_ACCOUNTS = 1000  # its default 3,000, cut
 NODE_PHASES = ("prefetch", "verify", "fee", "plan", "apply", "hash",
                "bucket", "stage", "commit", "meta", "total")
 SEED = 20260601
@@ -593,164 +610,6 @@ def tiered_orgs(make_qset, node_ids, top_thr, n_core=QI_CORE_ORGS,
     return qmap
 
 
-def numpy_fixpoint_form(scc, qmap):
-    """The 2-level qsets of the nodes ``scc`` restricted to ``scc`` as
-    float64 arrays, each distinct (threshold, members) element once: the
-    members (U, N), thresholds (U,), how often each node lists each
-    element (U, N) and the top thresholds (N,).  A validator listed twice
-    counts once, an inner set listed twice twice, as in the dense form."""
-    col = {v: i for i, v in enumerate(scc)}
-    elems: dict = {}
-    listings = []
-    top = np.zeros(len(scc))
-    for i, node in enumerate(scc):
-        qset = qmap[node]
-        top[i] = qset.threshold
-        keys = [(1, (c,)) for c in sorted({col[v.value] for v in
-                                           qset.validators
-                                           if v.value in col})]
-        keys += [(s.threshold, tuple(sorted({col[v.value]
-                                             for v in s.validators
-                                             if v.value in col})))
-                 for s in qset.innerSets]
-        listings += [(elems.setdefault(k, len(elems)), i) for k in keys]
-    mem = np.zeros((max(len(elems), 1), len(scc)))
-    thr = np.ones(mem.shape[0])
-    for (t, cols), e in elems.items():
-        thr[e] = t
-        mem[e, list(cols)] = 1
-    use = np.zeros_like(mem)
-    for e, i in listings:
-        use[e, i] += 1
-    return mem, thr, use, top
-
-
-def numpy_fixpoint(form, m):
-    """Greatest-fixpoint contraction of the bool rows ``m`` (B, N) on the
-    host: node i stays while its listed elements satisfied inside the row
-    reach its top threshold."""
-    mem, thr, use, top = form
-    while True:
-        sat = (m.astype(np.float64) @ mem.T >= thr) & (thr > 0)
-        nxt = m & (sat.astype(np.float64) @ use >= top)
-        if (nxt == m).all():
-            return nxt
-        m = nxt
-
-
-def chunk_bound_ms(rows: int, n: int, u: int, trips: int) -> float:
-    """Least time the H100 could take for one ``contract_shared`` chunk of
-    ``rows`` rows over N nodes and U distinct elements that ran ``trips``
-    trips: the larger of its products' float32 operations (2·rows·N·U for
-    the counts and as many for the listings, a trip) over 67 TFLOP/s and
-    its bytes (the float32 element members and listings and thresholds
-    read once, the bool rows read and written once) over 3.35 TB/s."""
-    ops = trips * 4 * rows * n * u
-    nbytes = 4 * (2 * u * n + u + n) + 2 * rows * n
-    return max(ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-
-
-class ContractorProbe:
-    """While active, wraps the checker's ``_Contractor._eval`` and the
-    quorum ops' ``contract_shared`` / ``_shared_trip``: every device
-    chunk is timed by CUDA events, its trips counted and its bound
-    computed, and every device evaluation's rows are held to
-    ``numpy_fixpoint`` of the same rows (mismatching rows counted).  The
-    package has no timers of its own."""
-
-    def __init__(self, qi, quorum_ops):
-        self.qi, self.ops = qi, quorum_ops
-        self._saved: dict = {}
-        self._forms: dict = {}
-        self.reset()
-
-    def reset(self) -> None:
-        self.evals = self.rows = self.mismatches = 0
-        self.chunk_ms: list = []
-        self.chunk_trips: list = []
-        self.chunk_rows: list = []
-        self.chunk_bound_ms: list = []
-        self.devices: set = set()
-        self.widths: set = set()   # (N, K dense inner slots, U elements)
-        self.check_seconds = 0.0
-        self._trips = 0
-
-    def stats(self) -> dict:
-        ms = self.chunk_ms
-        return {"evals": self.evals, "rows": self.rows,
-                "chunks": len(ms), "chunk_rows_max": max(self.chunk_rows,
-                                                          default=0),
-                "ms_per_chunk": sum(ms) / len(ms) if ms else None,
-                "ms_per_chunk_max": max(ms, default=None),
-                "trips_per_chunk": (sum(self.chunk_trips) / len(ms)
-                                    if ms else None),
-                "trips_per_chunk_max": max(self.chunk_trips, default=None),
-                "bound_ms_per_chunk": (sum(self.chunk_bound_ms) / len(ms)
-                                       if ms else None),
-                "share_of_bound": (sum(self.chunk_bound_ms) / sum(ms)
-                                   if ms else None),
-                "device_ms": sum(ms), "devices": sorted(self.devices),
-                "n_k_u": sorted(self.widths),
-                "mismatched_rows": self.mismatches,
-                "check_seconds": self.check_seconds}
-
-    def __enter__(self):
-        cls, ops = self.qi._Contractor, self.ops
-        real_eval, real_chunk = cls._eval, ops.contract_shared
-        real_trip = ops._shared_trip
-        self._saved = {(cls, "_eval"): real_eval,
-                       (ops, "contract_shared"): real_chunk,
-                       (ops, "_shared_trip"): real_trip}
-
-        def trip(ss, m):
-            self._trips += 1
-            return real_trip(ss, m)
-
-        def chunk(ss, members):
-            self._trips = 0
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = real_chunk(ss, members)
-            end.record()
-            end.synchronize()
-            self.chunk_ms.append(start.elapsed_time(end))
-            self.chunk_trips.append(self._trips)
-            self.chunk_rows.append(int(members.shape[0]))
-            self.chunk_bound_ms.append(chunk_bound_ms(
-                int(members.shape[0]), ss.mem.shape[1], ss.mem.shape[0],
-                self._trips))
-            return out
-
-        def evaluate(contractor, m):
-            out = real_eval(contractor, m)
-            if contractor.use_device:
-                t0 = time.perf_counter()
-                self.evals += 1
-                self.rows += m.shape[0]
-                self.devices.add(str(contractor.device))
-                self.widths.add((contractor.n, contractor.inner_mem.shape[1],
-                                 contractor._shared.mem.shape[0]))
-                key = id(contractor)
-                if key not in self._forms:
-                    self._forms[key] = (contractor, numpy_fixpoint_form(
-                        contractor.scc, contractor.qmap))
-                want = numpy_fixpoint(self._forms[key][1], m)
-                self.mismatches += int((out != want).any(axis=1).sum())
-                self.check_seconds += time.perf_counter() - t0
-            return out
-
-        cls._eval, ops.contract_shared, ops._shared_trip = (evaluate, chunk,
-                                                            trip)
-        return self
-
-    def __exit__(self, *exc):
-        for (owner, name), real in self._saved.items():
-            setattr(owner, name, real)
-        self._saved.clear()
-        self._forms.clear()
-
-
 def qi_result(res, seconds) -> dict:
     return {"ok": res.ok, "scanned": res.scanned, "aborted": res.aborted,
             "tier": res.tier, "scc_size": res.scc_size, "seconds": seconds,
@@ -785,6 +644,7 @@ def quorum_intersection_phase(net, dev) -> list:
     from stellar_core_tpu_torch.herder.quorum_tracker import QuorumTracker
     from stellar_core_tpu_torch.ops import quorum as Q
     from stellar_core_tpu_torch.scp import local_node as LN
+    from stellar_core_tpu_torch.tools.contractor_probe import ContractorProbe
 
     t0 = time.perf_counter()
     native.get_lib()       # g++, outside the native tier's timed scans
@@ -2507,6 +2367,101 @@ def fuzz_phase(card_line: str, dev) -> int:
     return launches
 
 
+def tools_phase(card_line: str) -> int:
+    """The ``tools`` phase: four of the port's benchmark tools in-process,
+    their ``cuda`` arms on the card, each checked against a ``cpu`` node or
+    the committed artifact; returns the launches of the card arms (the
+    ``cpu`` comparisons launch nothing).  Prints one line a tool."""
+    import hashlib
+    from pathlib import Path
+
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+    from stellar_core_tpu_torch.tools import parallel_apply_bench as PAB
+    from stellar_core_tpu_torch.tools import pipeline_bench, soak_bench
+    from stellar_core_tpu_torch.tools import scp_forensics_bench as SFB
+
+    forensics = Path(__file__).resolve().parent / \
+        "FORENSICS_induced_fork_seed14.json"
+    want_dump = hashlib.sha256(forensics.read_bytes()).hexdigest()
+    t_phase = time.perf_counter()
+    emit({"phase": "tools", "card": card_line, "tools": [
+        "pipeline_bench.parity_pass", "parallel_apply_bench.fingerprint",
+        "soak_bench.soak_run", "scp_forensics_bench.fork_probe"]})
+    t0 = time.perf_counter()
+    host = pipeline_bench.parity_pass("cpu", TOOLS_WORKERS)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    total = 0
+
+    def step(name, fn):
+        nonlocal total
+        launches0 = ed25519_cuda.launches
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = ed25519_cuda.launches - launches0
+        if launches < 1:
+            raise AssertionError(f"tools/{name} launched the kernel no time")
+        total += launches
+        return out, launches, time.perf_counter() - t0
+
+    row, launches, secs = step("pipeline_bench", lambda: (
+        pipeline_bench.parity_pass("cuda", TOOLS_WORKERS)))
+    if not row["hashes_identical"] or \
+            row["last_ledger_hash"] != host["last_ledger_hash"]:
+        raise AssertionError(f"pipeline parity on the card: {row}, cpu "
+                             f"{host}")
+    emit({"phase": "tools", "tool": "pipeline_bench", "closes": row["closes"],
+          "hashes_identical": True, "equal_to_cpu_node": True,
+          "launches": launches, "seconds": secs, "cpu_seconds": host_s})
+
+    t0 = time.perf_counter()
+    want, _ = PAB.fingerprint_workload("pay", 2, True, TOOLS_APPLY_CLOSES,
+                                       TOOLS_APPLY_TXS, backend="cpu")
+    cpu_s = time.perf_counter() - t0
+    (got, stats), launches, secs = step("parallel_apply_bench", lambda: (
+        PAB.fingerprint_workload("pay", 2, True, TOOLS_APPLY_CLOSES,
+                                 TOOLS_APPLY_TXS, backend="cuda")))
+    if got != want:
+        raise AssertionError(f"apply fingerprints differ: {got} vs {want}")
+    emit({"phase": "tools", "tool": "parallel_apply_bench",
+          "shape": "pay", "workers": 2, "closes": TOOLS_APPLY_CLOSES,
+          "close_txs": TOOLS_APPLY_TXS, "equal_to_cpu_node": True,
+          "native_hits": stats["native_hits"], "aborts": stats["aborts"],
+          "launches": launches, "seconds": secs, "cpu_seconds": cpu_s})
+
+    row, launches, secs = step("soak_bench", lambda: soak_bench.soak_run(
+        "cuda", TOOLS_SOAK_RATE, TOOLS_SOAK_SECONDS, TOOLS_SOAK_ACCOUNTS,
+        1.0))
+    sustained = row["sustained"]
+    counts = {str(k): v for k, v in sustained["admit_status_counts"].items()}
+    if counts != {"0": sustained["submitted"]} \
+            or sustained["applied_txs"] + sustained["queue_left"] != \
+            sustained["submitted"] or not sustained["submitted"]:
+        raise AssertionError(f"soak on the card: {sustained}")
+    emit({"phase": "tools", "tool": "soak_bench", "rate_tx_s":
+          TOOLS_SOAK_RATE, "duration_s": TOOLS_SOAK_SECONDS,
+          "sustained": sustained, "close_ms": row["close_ms"],
+          "verify_phase_ms": row["verify_phase_ms"], "slo": row["slo"],
+          "measured_launches": row["measured_kernel_launches"],
+          "launches": launches, "seconds": secs})
+
+    row, launches, secs = step("scp_forensics_bench", lambda: SFB.fork_probe(
+        "cuda", 14, 40.0))
+    if not (row["attributed_to_byzantine"] and row["rerun_dump_identical"]
+            and row["dump_sha256"] == want_dump):
+        raise AssertionError(f"fork probe on the card: {row}")
+    emit({"phase": "tools", "tool": "scp_forensics_bench",
+          "dump_sha256": row["dump_sha256"], "equal_to_committed_dump": True,
+          "first_divergence": row["first_divergence"],
+          "launches": launches, "seconds": secs,
+          "run_seconds": row["seconds"]})
+    emit({"phase": "tools", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def special_scalar_cases(ref, rng):
     """(A encoding, s, h) rows: every special scalar as s, as h and as
     both, beside seeded scalars mod L and seeded keys."""
@@ -2888,7 +2843,10 @@ def main() -> int:
     # -- 14. fuzz: the committed repros on the card --------------------------
     fuzz_launches = fuzz_phase(card_line, dev)
 
-    # -- 15. times -----------------------------------------------------------
+    # -- 15. tools: the port's benchmark tools on the card ------------------
+    tools_launches = tools_phase(card_line)
+
+    # -- 16. times -----------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)
@@ -2941,7 +2899,7 @@ def main() -> int:
         "launches": (launches + scp_launches + node_launches
                      + net_launches + net_close_launches + bench_launches
                      + parallel_launches + cli_launches + catchup_launches
-                     + chaos_launches + fuzz_launches),
+                     + chaos_launches + fuzz_launches + tools_launches),
         "launches_by_path": {"admission": launches, "scp": scp_launches,
                              "node": node_launches, "network": net_launches,
                              "network_close": net_close_launches,
@@ -2950,7 +2908,8 @@ def main() -> int:
                              "cli": cli_launches,
                              "catchup": catchup_launches,
                              "chaos": chaos_launches,
-                             "fuzz": fuzz_launches},
+                             "fuzz": fuzz_launches,
+                             "tools": tools_launches},
         "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_ms_ref10_count": ref10_ms,

@@ -106,8 +106,21 @@ def test_cpu_routes_run_on_one_thread_and_restore_the_callers_count(
 def test_port_sources_name_neither_jax_nor_the_jax_package(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "stellar_core_tpu"), name
+        # nor the repository's tests and JAX tools
+        assert root not in ("jax", "jaxlib", "stellar_core_tpu", "tests",
+                            "tools"), name
     assert "stellar_core_tpu." not in path.read_text()
+
+
+def test_the_sweep_covers_every_tool():
+    tools = {m for m in _port_modules()
+             if m.startswith("stellar_core_tpu_torch.tools.")}
+    assert tools >= {f"stellar_core_tpu_torch.tools.{t}" for t in (
+        "catchup_bench", "chaos_bench", "fuzz_repro", "quorum_tier_bench",
+        "multichip_bench", "parallel_apply_bench", "pipeline_bench",
+        "soak_bench", "scp_forensics_bench", "fuzz_bench",
+        "bucket_scale_bench", "read_bench", "_workloads",
+        "contractor_probe")}
 
 
 def test_kernel_wrapper_raises_for_default_device_inputs_without_gpu():

@@ -47,6 +47,14 @@ _CH.core, _CH.hierarchical_quorum = core, hierarchical_quorum
 globals().update(_port_tests(_CH))
 
 
+@pytest.fixture(autouse=True)
+def traces_in_tmp_path(tmp_path, monkeypatch):
+    """A node's slow-close traces go to its ``TRACE_DIR``, ``traces`` in the
+    cwd by default: every network this file builds (the executed cases'
+    too) writes them under the test's own directory, never the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 def test_cases_run_on_the_port():
     names = set(_port_tests(_CH))
     text = (TESTS / "test_chaos.py").read_text()

@@ -57,6 +57,14 @@ globals().update(_port_tests(_FUZZ))
 globals().update(_port_tests(_SCHED))
 
 
+@pytest.fixture(autouse=True)
+def traces_in_tmp_path(tmp_path, monkeypatch):
+    """A node's slow-close traces go to its ``TRACE_DIR``, ``traces`` in the
+    cwd by default: every network this file builds (the executed cases'
+    too) writes them under the test's own directory, never the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 def test_cases_run_on_the_port():
     for mod, path in ((_FUZZ, "test_fuzz.py"),
                       (_SCHED, "test_fuzz_schedule.py")):
@@ -152,13 +160,15 @@ def test_fuzz_repro_exit_codes_equal_the_jax_tool(case, want, tmp_path):
     path = {"reproduced": lambda: crash,
             "rotted": lambda: _tamper(crash, tmp_path),
             "invalid": lambda: _corrupt(crash, tmp_path)}[case]()
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    # from the test's directory: the JAX tool's nodes put slow-close traces
+    # in ``traces`` of the cwd
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     jax = subprocess.run([sys.executable, "-m", "tools.fuzz_repro",
-                          str(path)], cwd=REPO, env=env,
+                          str(path)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     port = subprocess.run(
         [sys.executable, "-m", "stellar_core_tpu_torch.tools.fuzz_repro",
-         str(path), "--device", "cpu"], cwd=REPO, env=env,
+         str(path), "--device", "cpu"], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300)
     assert (jax.returncode, port.returncode) == (want, want), \
         (jax.stderr[-1000:], port.stderr[-1000:])

@@ -52,6 +52,14 @@ def jax_host_tiers(monkeypatch):
                         lambda timeout=10.0: False)
 
 
+@pytest.fixture(autouse=True)
+def traces_in_tmp_path(tmp_path, monkeypatch):
+    """A node's slow-close traces go to its ``TRACE_DIR``, ``traces`` in the
+    cwd by default: every network this file builds (the executed cases'
+    too) writes them under the test's own directory, never the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 def ring(sim_cls, n=6, **kw):
     """``cycle(n)``'s network with the node keywords ``cycle`` does not
     take: each node trusts itself and both neighbours (2 of 3)."""
