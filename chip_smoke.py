@@ -97,7 +97,9 @@ Phases (each prints one JSON line):
                ``generateload`` create and pay, ``quorum?intersection=
                true``; both close 3 more ledgers with one header hash, and
                each launched the kernel for its overlay batches and its
-               closes (``/metrics``); the children are killed on exit;
+               closes (``/metrics``); ``tools.fleet_scrape`` polls both for
+               2 rounds (both reachable, ledger spread at most 1); the
+               children are killed on exit;
  12. catchup — BASELINE config #4, the herder's ledger-close replay of a
                catchup history range: a ``cpu``-backend publisher with
                1,000 accounts archives 3 checkpoints of 8 ledgers (16
@@ -134,7 +136,16 @@ Phases (each prints one JSON line):
                node, rerun byte-identical, the dump equal to the committed
                ``FORENSICS_induced_fork_seed14.json``); each launched the
                kernel;
- 16. times   — CUDA-event times (warm-up excluded) with the card's name
+ 16. netobs  — ``chaos_bench --netobs``'s core-4 tier (chaos and rate-mode
+               load, the observatory and the crank profiler armed, flood
+               tracing on, then off) on a ``cuda`` arm (the verify kernel
+               for every node's envelope batches, tensor tallies on the
+               card) and a ``cpu`` arm, the backends in turns: the five
+               gates hold on both arms, the arms' digests are equal, each
+               arm's crank wall split by subsystem and overlay batches are
+               printed, and ``tools.trace_view.render_propagation`` renders
+               the ``cuda`` arm's observatory summary;
+ 17. times   — CUDA-event times (warm-up excluded) with the card's name
                and power limit: the kernel, ``admission_step``, one
                recorded live tally call replayed, with the contraction
                trips, CUDA runtime calls and device kernels of one replay
@@ -215,6 +226,9 @@ TOOLS_APPLY_TXS = 1000     # ... of 1,000 payments (its default)
 TOOLS_SOAK_RATE = 100.0    # soak_bench's default rate, tx/s
 TOOLS_SOAK_SECONDS = 10.0  # its default 200 s, cut
 TOOLS_SOAK_ACCOUNTS = 1000  # its default 3,000, cut
+NETOBS_TIER = "core4"      # chaos_bench --netobs's core-4 tier
+NETOBS_SEED = 11           # its default seed
+CLI_SCRAPE_ROUNDS = 2      # fleet_scrape rounds over the CLI nodes
 NODE_PHASES = ("prefetch", "verify", "fee", "plan", "apply", "hash",
                "bucket", "stage", "commit", "meta", "total")
 SEED = 20260601
@@ -2153,6 +2167,16 @@ def run_cli(backend: str) -> dict:
                                      f"{height(got[0])}: {hashes}")
             out.update(ledger=height(got[0]), hash=hashes.pop(),
                        crypto_backend=[i["crypto_backend"] for i in got])
+            # the fleet scraper over both nodes' admin endpoints
+            from stellar_core_tpu_torch.tools import fleet_scrape
+
+            scraped = fleet_scrape.run(
+                [f"127.0.0.1:{p}" for p in ports], CLI_SCRAPE_ROUNDS, 0.5,
+                str(Path(tmp) / "fleet.jsonl"))
+            out["fleet"] = scraped["fleet"]
+            if out["fleet"]["n_reachable"] != 2 or \
+                    out["fleet"]["ledger_spread"] > 1:
+                raise AssertionError(f"fleet_scrape: {out['fleet']}")
             out["metrics"] = []
             for p in ports:
                 snap = http_json(p, "metrics")["metrics"]
@@ -2460,6 +2484,50 @@ def tools_phase(card_line: str) -> int:
     emit({"phase": "tools", "launches": total,
           "seconds": time.perf_counter() - t_phase})
     return total
+
+
+def netobs_phase(card_line: str) -> int:
+    """The ``netobs`` phase: ``chaos_bench.run_netobs`` on the core-4 tier
+    with a ``cuda`` and a ``cpu`` arm in turns, tracing on and off (it
+    prints each arm's row and asserts the five gates on both arms and the
+    arms' equal digests); the ``cuda`` arm's observatory summary rendered by
+    ``trace_view.render_propagation``.  Prints one line; returns the
+    ``cuda`` arm's launches."""
+    from stellar_core_tpu_torch.ops import ed25519_cuda
+    from stellar_core_tpu_torch.tools import LAUNCHES, trace_view
+    from stellar_core_tpu_torch.tools import chaos_bench
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_launches()
+    doc = chaos_bench.run_netobs([NETOBS_TIER], NETOBS_SEED, ["cuda", "cpu"])
+    torch.cuda.synchronize()
+    launches = ed25519_cuda.launches
+    res = doc["tiers"][NETOBS_TIER]
+    arms = [res[b][mode]["arm"] for b in ("cuda", "cpu")
+            for mode in ("on", "off")]
+    counted = sum(a[LAUNCHES] for a in arms if a["backend"] == "cuda")
+    if launches < 1 or launches != counted or any(
+            a[LAUNCHES] for a in arms if a["backend"] == "cpu"):
+        raise AssertionError(f"netobs: {launches} launches, arms "
+                             f"{[a[LAUNCHES] for a in arms]}")
+    text = trace_view.render_propagation(res["cuda"]["on"]["observatory"])
+    if not text.startswith("4 nodes,") or "time_to_90pct" not in text:
+        raise AssertionError(f"render_propagation: {text[:400]}")
+    emit({"phase": "netobs", "card": card_line, "tier": NETOBS_TIER,
+          "seed": NETOBS_SEED,
+          "arms": [{k: a[k] for k in (
+              "backend", "trace_enabled", "buckets_s", "events",
+              "wall_per_virtual_s", "attributed_pct", "close_p50_wall_s",
+              "overlay_batches", "overlay_triples",
+              "overlay_launched_batches", "overlay_padded_rows",
+              "overlay_verify_s", "tally_calls", "tally_s", LAUNCHES,
+              "bench_wall_s")} for a in arms],
+          "gates": {b: res[b]["gates"] for b in ("cuda", "cpu")},
+          "digests": res["cuda"]["on"]["digests"], "digests_equal": True,
+          "propagation_render_lines": text.count("\n") + 1,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def special_scalar_cases(ref, rng):
@@ -2846,7 +2914,10 @@ def main() -> int:
     # -- 15. tools: the port's benchmark tools on the card ------------------
     tools_launches = tools_phase(card_line)
 
-    # -- 16. times -----------------------------------------------------------
+    # -- 16. netobs: the network observatory on a cuda and a cpu arm -------
+    netobs_launches = netobs_phase(card_line)
+
+    # -- 17. times -----------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
     kernel_ms = cuda_ms(lambda: ed25519_cuda.verify_batch(*kin))
     plain_full = ed25519_kernel.verify_batch(*kin)
@@ -2899,7 +2970,8 @@ def main() -> int:
         "launches": (launches + scp_launches + node_launches
                      + net_launches + net_close_launches + bench_launches
                      + parallel_launches + cli_launches + catchup_launches
-                     + chaos_launches + fuzz_launches + tools_launches),
+                     + chaos_launches + fuzz_launches + tools_launches
+                     + netobs_launches),
         "launches_by_path": {"admission": launches, "scp": scp_launches,
                              "node": node_launches, "network": net_launches,
                              "network_close": net_close_launches,
@@ -2909,7 +2981,8 @@ def main() -> int:
                              "catchup": catchup_launches,
                              "chaos": chaos_launches,
                              "fuzz": fuzz_launches,
-                             "tools": tools_launches},
+                             "tools": tools_launches,
+                             "netobs": netobs_launches},
         "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_ms_ref10_count": ref10_ms,

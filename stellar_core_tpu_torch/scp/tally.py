@@ -27,6 +27,7 @@ import torch
 
 from ..utils.device import cpu_threads
 from . import local_node as LN
+from .statement import companion_qset_hash
 
 HOST = "host"
 TENSOR = "tensor"
@@ -44,10 +45,6 @@ class TallyEngine:
         self.device = device
         self._cache_key: Optional[Tuple] = None
         self._tensors = None  # (local_qs, qsets, node_order)
-        # id(qset) -> (qset, its hash): the entry pins the object, so an
-        # id is never recycled while it is a key, and a hash is a pure
-        # function of the qset's value
-        self._qset_hashes: Dict[int, Tuple[object, bytes]] = {}
         self.tensor_tallies = 0
         self.host_fallbacks = 0
 
@@ -58,6 +55,11 @@ class TallyEngine:
 
         local = self.slot.local_node
         node_qsets: Dict[bytes, object] = {local.node_id: local.qset}
+        # the cache key: each node with the hash of its qset.  A statement
+        # names its qset by hash and ``qset_from_statement`` resolves that
+        # hash, so the key needs no re-hash of the qset objects (re-hashing
+        # every sender's qset on each call dominated a slot on the card).
+        node_hashes: Dict[bytes, bytes] = {local.node_id: local.qset_hash}
         # sorted iteration: the envelope map arrives keyed by node id
         # (bytes) — tensor construction must not depend on arrival or
         # hash order
@@ -66,8 +68,8 @@ class TallyEngine:
             if q is None:
                 continue
             node_qsets[n] = q
-        key = tuple(sorted(
-            (n, self._qset_hash(q)) for n, q in node_qsets.items()))
+            node_hashes[n] = companion_qset_hash(env.statement)
+        key = tuple(sorted(node_hashes.items()))
         if key == self._cache_key:
             return self._tensors
         for _, q in sorted(node_qsets.items()):
@@ -94,14 +96,6 @@ class TallyEngine:
         self._cache_key = key
         self._tensors = (local_qs, qsets, node_order)
         return self._tensors
-
-    def _qset_hash(self, q) -> bytes:
-        """``LN.qset_hash(q)``, encoded and hashed once per qset object
-        (every call keys the tensors by the hash of each sender's qset)."""
-        ent = self._qset_hashes.get(id(q))
-        if ent is None:
-            ent = self._qset_hashes[id(q)] = (q, LN.qset_hash(q))
-        return ent[1]
 
     def device_accept(self, local_qs, qsets, rows: np.ndarray) -> bool:
         """Host rows (2, N) bool — accepted, voted-or-accepted — to the

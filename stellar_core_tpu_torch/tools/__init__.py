@@ -13,9 +13,17 @@ run the port, on the GPU unless ``--device cpu`` is given (tests only).
     python -m stellar_core_tpu_torch.tools.fuzz_bench [--smoke]
     python -m stellar_core_tpu_torch.tools.bucket_scale_bench [N [PER]]
     python -m stellar_core_tpu_torch.tools.read_bench [N [PER [READS]]]
+    python -m stellar_core_tpu_torch.tools.chaos_bench --netobs [--tier ..]
+    python -m stellar_core_tpu_torch.tools.capture_loop [--n N]
+    python -m stellar_core_tpu_torch.tools.verify_green [--lint-only]
+    python -m stellar_core_tpu_torch.tools.lint [--strict|--json|--changed]
+    python -m stellar_core_tpu_torch.tools.trace_view <trace.json> [..]
+    python -m stellar_core_tpu_torch.tools.fleet_scrape --nodes HOST:PORT,..
 
 Each prints JSON lines on stdout, the result last, and writes a file only
-with ``--out``.  A tool whose workload runs on a node runs it once a
+with ``--out``.  ``lint`` (detlint over the port's package),
+``trace_view`` and ``fleet_scrape`` run nothing on a device: they are the
+repository's tools pointed at the port, and take no ``--device``.  A tool whose workload runs on a node runs it once a
 backend (``BACKENDS``): on the GPU a ``cuda`` node (the verify kernel, the
 tallies on the card) and a ``cpu`` node (host verifies and tallies) on
 the same host, in turns (``turns``) where the tool measures more than

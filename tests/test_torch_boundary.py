@@ -120,7 +120,11 @@ def test_the_sweep_covers_every_tool():
         "multichip_bench", "parallel_apply_bench", "pipeline_bench",
         "soak_bench", "scp_forensics_bench", "fuzz_bench",
         "bucket_scale_bench", "read_bench", "_workloads",
-        "contractor_probe")}
+        "contractor_probe", "trace_view", "fleet_scrape", "verify_green",
+        "capture_loop", "lint", "lint.__main__", "lint.engine",
+        "lint.determinism", "lint.locks", "lint.callgraph", "lint.interproc",
+        "lint.concurrency", "lint.threadmodel", "lint.native", "lint.cache",
+        "lint.safety")}
 
 
 def test_kernel_wrapper_raises_for_default_device_inputs_without_gpu():

@@ -11,7 +11,11 @@ process, and launches the kernel, by the kernel's own count:
   ``cpu`` network's;
 - ``read_bench``: the SQL-free point reads of a ``cuda`` node;
 - ``quorum_tier_bench``: the device tier on the card, its contractor
-  chunks held to a host fixpoint, the verdicts of the ``cpu`` tier.
+  chunks held to a host fixpoint, the verdicts of the ``cpu`` tier;
+- ``chaos_bench --netobs``: the core-4 observatory tier on a ``cuda`` and a
+  ``cpu`` arm, tracing on and off: the five gates hold on both, the
+  ``cuda`` arm's digests equal the ``cpu`` arm's, and only the ``cuda``
+  arm launched the kernel.
 
 It imports only torch and the port (the GPU host has no jax) and skips
 with a reason where there is no GPU.  On a GPU host, without the
@@ -93,3 +97,22 @@ def test_device_tier_on_the_card_equals_the_cpu_tier(card):
         (True, 4003)
     assert gpu["contractor"]["chunks"] > 0
     assert gpu["contractor"]["mismatched_rows"] == 0
+
+
+@pytest.mark.cuda
+def test_netobs_core4_on_the_card_equals_the_cpu_arm(card):
+    from stellar_core_tpu_torch.tools import LAUNCHES
+    from stellar_core_tpu_torch.tools.chaos_bench import run_netobs
+
+    doc = run_netobs(["core4"], 11, ["cuda", "cpu"])
+    res = doc["tiers"]["core4"]
+    for b in ("cuda", "cpu"):
+        g = res[b]["gates"]
+        assert g["hop_records_nonzero"] and g["coverage_percentiles_present"]
+        assert g["inert_hashes_and_meta"] and g["tracing_overhead_ok"]
+        assert g["attribution_ok"]
+    for mode in ("on", "off"):
+        assert res["cuda"][mode]["digests"] == res["cpu"][mode]["digests"]
+        assert res["cuda"][mode]["arm"][LAUNCHES] > 0
+        assert res["cpu"][mode]["arm"][LAUNCHES] == 0
+        assert res["cuda"][mode]["arm"]["overlay_launched_batches"] > 0

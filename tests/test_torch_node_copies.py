@@ -108,6 +108,43 @@ FAULT_FIXES = {
     },
 }
 
+# The repository's tools that the port carries: ``tools/<rel>`` against
+# ``stellar_core_tpu_torch/tools/<rel>``.  The copies follow the rule above.
+# detlint's seams point it at the port (its package, the repository root
+# one directory further up, the native sources, its own cache file and
+# program name, the manifest's paths): the JAX text with these strings
+# replaced and no other change.  ``fleet_scrape`` writes its JSONL to
+# stdout unless ``--out`` is given (tests/test_torch_tools_trace.py).
+TOOL_COPIES = """
+trace_view.py lint/__init__.py lint/callgraph.py lint/concurrency.py
+lint/determinism.py lint/interproc.py lint/locks.py lint/safety.py
+lint/threadmodel.py lint/baseline.json
+""".split()
+TOOL_SEAMS = {
+    "lint/engine.py": {
+        "REPO = os.path.dirname(os.path.dirname(os.path.dirname(\n"
+        "    os.path.abspath(__file__))))\n"
+        'PACKAGE = "stellar_core_tpu"\n':
+        "REPO = os.path.dirname(os.path.dirname(os.path.dirname("
+        "os.path.dirname(\n"
+        "    os.path.abspath(__file__)))))\n"
+        'PACKAGE = "stellar_core_tpu_torch"\n',
+    },
+    "lint/native.py": {'NATIVE_DIR = "stellar_core_tpu/native"':
+                       'NATIVE_DIR = "stellar_core_tpu_torch/native"'},
+    "lint/cache.py": {'CACHE_BASENAME = ".detlint-cache.json"':
+                      'CACHE_BASENAME = ".detlint-torch-cache.json"'},
+    "lint/__main__.py": {
+        '"""CLI: ``python -m tools.lint':
+            '"""CLI: ``python -m stellar_core_tpu_torch.tools.lint',
+        'prog="python -m tools.lint"':
+            'prog="python -m stellar_core_tpu_torch.tools.lint"',
+        '"whole stellar_core_tpu package)"':
+            '"whole stellar_core_tpu_torch package)"',
+    },
+}
+TOOL_DIFFERS = ("fleet_scrape.py",)
+
 # Modules a later slice ports: none is left.  The node reached the last of
 # them, the admin HTTP server, through ``Application.enable_tcp``.
 AWAITING: set = set()
@@ -125,6 +162,45 @@ def test_copy_equals_the_jax_module(rel):
         text = text.replace(old, new)
     assert (PORT / rel).read_text() == text, \
         f"{rel} drifted from stellar_core_tpu/{rel}"
+
+
+@pytest.mark.parametrize("rel", TOOL_COPIES)
+def test_tool_copy_equals_the_repository_tool(rel):
+    text = _as_port((REPO / "tools" / rel).read_text())
+    assert (PORT / "tools" / rel).read_text() == text, \
+        f"tools/{rel} of the port drifted from tools/{rel}"
+
+
+@pytest.mark.parametrize("rel", sorted(TOOL_SEAMS))
+def test_tool_seam_differs_only_in_its_names(rel):
+    text = _as_port((REPO / "tools" / rel).read_text())
+    for old, new in TOOL_SEAMS[rel].items():
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    assert (PORT / "tools" / rel).read_text() == text
+
+
+@pytest.mark.parametrize("rel", TOOL_DIFFERS)
+def test_tool_seam_differs_from_the_repository_tool(rel):
+    assert (PORT / "tools" / rel).read_text() != \
+        _as_port((REPO / "tools" / rel).read_text())
+
+
+def test_lockstep_manifest_pins_the_port_sources():
+    """The port's lockstep manifest is the repository's with every pinned
+    file in the port's package, and each of them exists."""
+    import json
+
+    jax_text = (REPO / "tools" / "lint" / "lockstep.json").read_text()
+    port_text = (PORT / "tools" / "lint" / "lockstep.json").read_text()
+    assert port_text == jax_text.replace('"stellar_core_tpu/',
+                                         '"stellar_core_tpu_torch/')
+    files = {side["file"] for entry in json.loads(port_text)["constants"]
+             for side in (entry["cpp"], entry.get("py")) if side}
+    assert len(json.loads(port_text)["constants"]) == \
+        len(json.loads(jax_text)["constants"])
+    assert files and all(f.startswith("stellar_core_tpu_torch/") and
+                         (REPO / f).is_file() for f in files), files
 
 
 @pytest.mark.parametrize("rel", SEAMS)

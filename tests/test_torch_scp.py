@@ -14,6 +14,10 @@ on ``device="cpu"``).
 3. A 3-level quorum set falls back to the host with the same
    ``host_fallbacks`` as the JAX engine.
 4. A tensor backend with no device given raises where there is no GPU.
+5. The tally engine's tensor cache: its key equals the JAX engine's for
+   the same envelopes, it keeps no qset object over many builds with
+   fresh qset objects, and the port's detlint finds ``scp/tally.py``
+   clean (and finds an ``id()``-keyed memo injected into it).
 
 Tolerance: byte equality of envelopes, equality of values and counters."""
 import functools
@@ -407,3 +411,111 @@ def test_tensor_backend_without_device_raises_without_gpu(backend):
         PS.SCP(drv, V[0], True, qset, tally_backend=backend)
     host = PS.SCP(drv, V[0], True, qset)
     assert host.tally_device is None and host.get_slot(1).tally is None
+
+
+# -- the tensor cache's key --------------------------------------------------
+
+def _slot_envelopes(net, slot_index=1):
+    """(node, slot, the slot's latest ballot envelopes) of every node."""
+    return [(node, node.slots[slot_index],
+             dict(node.slots[slot_index].ballot.latest_envelopes))
+            for node in net.nodes]
+
+
+def test_cache_key_equals_the_jax_engines():
+    from stellar_core_tpu.scp.tally import TallyEngine as JaxTallyEngine
+
+    jnet, _ = _network("jax", 4)
+    pnet, _ = _network("port", 4, "host")
+    keys = []
+    for (_, jslot, jenv), (_, pslot, penv) in zip(_slot_envelopes(jnet),
+                                                   _slot_envelopes(pnet)):
+        assert sorted(jenv) == sorted(penv) and len(penv) == 4
+        je = JaxTallyEngine(jslot, "tensor")
+        pe = TallyEngine(pslot, "tensor", torch.device("cpu"))
+        assert je._build(jenv) is not None and pe._build(penv) is not None
+        assert pe._cache_key == je._cache_key
+        keys.append(pe._cache_key)
+    assert len(keys) == 4 and all(len(k) == 4 for k in keys)
+
+
+def _owned(obj, depth=4) -> set:
+    """ids of the containers reachable from ``obj``'s attributes."""
+    seen, todo = set(), [(vars(obj), 0)]
+    while todo:
+        x, d = todo.pop()
+        if id(x) in seen or d > depth:
+            continue
+        seen.add(id(x))
+        if isinstance(x, dict):
+            todo += [(v, d + 1) for v in x.values()]
+        elif isinstance(x, (list, tuple, set, frozenset)):
+            todo += [(v, d + 1) for v in x]
+    return seen
+
+
+def test_engine_keeps_no_qset_objects_over_fresh_ones(monkeypatch):
+    import gc
+
+    net, _ = _network("port", 4, "host")
+    _, slot, envs = _slot_envelopes(net)[0]
+    eng = TallyEngine(slot, "tensor", torch.device("cpu"))
+    real = slot.qset_from_statement
+    fresh = []
+
+    def qset_from_statement(st):
+        q = real(st)
+        q = PT.SCPQuorumSet.decode(PT.SCPQuorumSet.encode(q))
+        fresh.append(q)
+        return q
+
+    monkeypatch.setattr(slot, "qset_from_statement", qset_from_statement)
+
+    def held():
+        return sum(len(v) for v in vars(eng).values()
+                   if isinstance(v, (dict, list, set, tuple)))
+
+    first = eng._build(envs)
+    size = held()
+    for _ in range(50):
+        assert eng._build(envs) is first   # the same key: the cached tensors
+    assert held() == size
+    assert len(fresh) == 51 * len(envs)
+    owned = _owned(eng)
+    for q in fresh[-len(envs):]:
+        assert not any(id(r) in owned for r in gc.get_referrers(q))
+
+
+def test_port_detlint_finds_the_tally_module_clean():
+    import subprocess
+    import sys
+
+    from stellar_core_tpu_torch.tools.lint import lint_sources
+    from stellar_core_tpu_torch.tools.lint.engine import REPO
+
+    rel = "stellar_core_tpu_torch/scp/tally.py"
+    res = subprocess.run([sys.executable, "-m",
+                          "stellar_core_tpu_torch.tools.lint", "--strict",
+                          rel], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "0 findings" in res.stdout
+    # an id()-keyed memo feeding the cache key goes red
+    with open(f"{REPO}/{rel}", encoding="utf-8") as fh:
+        src = fh.read()
+    old = "        key = tuple(sorted(node_hashes.items()))\n"
+    assert src.count(old) == 1
+    method = "    def device_accept("
+    assert src.count(method) == 1
+    bad = src.replace(old, (
+        "        key = tuple(sorted(\n"
+        "            (n, self._memo(q)) for n, q in node_qsets.items()))\n"
+    )).replace(method, (
+        "    def _memo(self, q):\n"
+        "        ent = self._seen.get(id(q))\n"
+        "        if ent is None:\n"
+        "            ent = self._seen[id(q)] = (q, LN.qset_hash(q))\n"
+        "        return ent[1]\n\n" + method))
+    findings = lint_sources({rel: bad})
+    assert any(f.rule == "det-interproc-taint" and "id()" in f.message
+               for f in findings), [f.render() for f in findings]
