@@ -14,9 +14,10 @@ MAXIMUM_QUORUM_NESTING_LEVEL=4, src/scp/QuorumSetUtils.cpp:16) — those
 slots fall back to the exact host evaluation in scp/local_node.py, which
 is also the differential oracle in "both" mode.
 
-The device is the one ``SCP(..., device=...)`` resolved: a host-backend
-SCP has none and never needs a GPU; a tensor backend with no device given
-runs on ``cuda`` and raises where there is none (``utils.device``).
+The device is the one ``SCP(..., device=...)`` resolved, or the engine's
+own ``device=`` argument: a host-backend engine has none and never needs a
+GPU; a tensor backend with no device given runs on ``cuda`` and raises
+where there is none (``utils.device``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import cpu_threads
+from ..utils.device import cpu_threads, default_device
 from . import local_node as LN
 from .statement import companion_qset_hash
 
@@ -39,10 +40,10 @@ class TallyMismatch(AssertionError):
 
 
 class TallyEngine:
-    def __init__(self, slot, backend: str, device: torch.device):
+    def __init__(self, slot, backend: str, device=None):
         self.slot = slot
         self.backend = backend
-        self.device = device
+        self.device = default_device(device) if backend != HOST else None
         self._cache_key: Optional[Tuple] = None
         self._tensors = None  # (local_qs, qsets, node_order)
         self.tensor_tallies = 0

@@ -11,6 +11,10 @@ A/B of the seeded fault-schedule fuzzer.
 - fleet-scale runs: one generated ``fleet``-profile schedule at each
   ``--fleet`` size (default 50 and 100 validators), wall seconds per
   virtual second;
+- each fleet run's crank profile (the shared clock's wall by subsystem
+  bucket, ``utils.clock.CrankProfiler``) in its row, and a progress line
+  on stderr every ``PROGRESS_S`` seconds (the network's virtual seconds
+  and buckets so far), so a run cut by a time limit shows how far it got;
 - the vectorized-vs-scalar quorum A/B: the same slice-evaluation workload
   timed with ``scp/qset_vector`` enabled then disabled (host numpy; no
   node) — the gate wants >= 2x at 50+ validators.
@@ -32,9 +36,11 @@ Usage: python -m stellar_core_tpu_torch.tools.fuzz_bench [--smoke]
            [--device cpu]
 """
 import argparse
+import contextlib
 import functools
 import os
 import sys
+import threading
 import time
 
 from . import (BACKENDS, add_backend_arg, arm_row, backends, card,
@@ -43,6 +49,7 @@ from . import (BACKENDS, add_backend_arg, arm_row, backends, card,
 
 PROG = "python -m stellar_core_tpu_torch.tools.fuzz_bench"
 FLEET_SHAPES = {50: (10, 5), 100: (20, 5)}
+PROGRESS_S = 300.0   # between a fleet run's progress lines
 
 
 def _note(msg):
@@ -132,11 +139,51 @@ def _fleet_schedule(seed0: int, n_orgs: int, per_org: int) -> dict:
         f"no fleet schedule with {n_orgs}x{per_org} in 512 seeds")
 
 
+@contextlib.contextmanager
+def crank_profiled(progress_s: float):
+    """Inside the block, every network a schedule's topology factory
+    builds arms its crank profiler as it is built; yields the list of
+    those networks.  Every ``progress_s`` seconds a line on stderr gives
+    the newest network's virtual seconds and buckets so far."""
+    from ..simulation.fuzz import schedule as S
+
+    real, sims, done = S.topology_factory, [], threading.Event()
+
+    def topology_factory(*args, **kw):
+        make = real(*args, **kw)
+
+        def make_profiled():
+            sim = make()
+            sim.enable_crank_profiler()
+            sims.append(sim)
+            return sim
+        return make_profiled
+
+    def progress():
+        while not done.wait(progress_s):
+            if sims:
+                try:
+                    _note(f"progress: {sims[-1].crank_report()}")
+                except RuntimeError:   # a bucket added while reading
+                    pass
+
+    S.topology_factory = topology_factory
+    ticker = threading.Thread(target=progress, daemon=True)
+    ticker.start()
+    try:
+        yield sims
+    finally:
+        S.topology_factory = real
+        done.set()
+        ticker.join()
+
+
 def bench_fleet(run, seed0: int, n_orgs: int, per_org: int) -> dict:
     sched = _fleet_schedule(seed0, n_orgs, per_org)
-    t0 = time.perf_counter()
-    res = run(sched)
-    wall = time.perf_counter() - t0
+    with crank_profiled(PROGRESS_S) as sims:
+        t0 = time.perf_counter()
+        res = run(sched)
+        wall = time.perf_counter() - t0
     rep = res.get("report") or {}
     virtual = rep.get("virtual_elapsed_s") or float(sched["duration"])
     return {
@@ -152,6 +199,7 @@ def bench_fleet(run, seed0: int, n_orgs: int, per_org: int) -> dict:
         "wall_s_per_virtual_s": round(wall / max(virtual, 1e-9), 3),
         "ledgers_closed": rep.get("ledgers_closed"),
         "time_to_heal_s": rep.get("time_to_heal_s"),
+        "crank_profile": sims[-1].crank_report(),
     }
 
 

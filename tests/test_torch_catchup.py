@@ -34,35 +34,13 @@ import sys
 import pytest
 
 from chip_smoke import run_catchup
-from stellar_core_tpu_torch.simulation.simulation import Simulation
 
-from .test_torch_golden import TESTS, _as_port_module, _port_tests
-
-HOST = {"CRYPTO_BACKEND": "cpu", "SCP_TALLY_BACKEND": "host"}
-
-
-class HostSimulation(Simulation):
-    """The port's ``Simulation`` on ``device="cpu"`` whose nodes run the
-    host tiers unless a node's own keywords name a backend."""
-
-    def __init__(self, *args, **kw):
-        kw.setdefault("device", "cpu")
-        super().__init__(*args, **kw)
-
-    def add_node(self, seed, qset_spec, node_dir=None, **config_kw):
-        return super().add_node(seed, qset_spec, node_dir=node_dir,
-                                **{**HOST, **config_kw})
+from .test_torch_golden import TESTS, HostSimulation, _port_tests, port_module
 
 
 def _modules():
-    _as_port_module("torch_golden_txtest", TESTS / "txtest.py")
-    hc = _as_port_module(
-        "torch_history_catchup", TESTS / "test_history_catchup.py",
-        **{"from .txtest import": "from torch_golden_txtest import"})
-    c = _as_port_module(
-        "torch_catchup", TESTS / "test_catchup.py",
-        **{"from .test_history_catchup import":
-           "from torch_history_catchup import"})
+    hc = port_module("test_history_catchup")
+    c = port_module("test_catchup")
     c.Simulation = HostSimulation
     return hc, c
 

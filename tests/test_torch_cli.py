@@ -30,7 +30,7 @@ from stellar_core_tpu_torch.crypto import SecretKey, sha256
 from stellar_core_tpu_torch.crypto.strkey import (encode_ed25519_public_key,
                                                   encode_ed25519_seed)
 
-from .test_torch_golden import _as_port_module
+from .test_torch_golden import _as_port_module, port_module
 
 TESTS = Path(__file__).resolve().parent
 REPO = TESTS.parent
@@ -43,7 +43,7 @@ TRACING_ENDPOINT_CASES = ("test_trace_endpoint_serves_chrome_json",
                           "test_metrics_prometheus_exposition",
                           "test_metrics_default_json_is_unchanged")
 
-_tracing = _as_port_module("torch_tracing", TESTS / "test_tracing.py")
+_tracing = port_module("test_tracing")
 slow_close = _tracing.slow_close   # the module-scoped fixture, on the port
 
 
@@ -168,9 +168,5 @@ def test_chip_smoke_cli_run_on_the_cpu_backend():
 
 @pytest.mark.slow
 def test_two_processes_converge_and_accept_tx_on_the_port(tmp_path):
-    _as_port_module("torch_golden_txtest", TESTS / "txtest.py")
-    mod = _as_port_module(
-        "torch_tcp_node", TESTS / "test_tcp_node.py",
-        **{'"-m", "stellar_core_tpu",': '"-m", "stellar_core_tpu_torch",',
-           "from .txtest import": "from torch_golden_txtest import"})
-    mod.test_two_processes_converge_and_accept_tx(tmp_path)
+    port_module("test_tcp_node").test_two_processes_converge_and_accept_tx(
+        tmp_path)

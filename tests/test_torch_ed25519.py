@@ -12,6 +12,7 @@ import torch
 from stellar_core_tpu.crypto import SecretKey, sha256
 from stellar_core_tpu.crypto import ed25519 as cpu_ed
 from stellar_core_tpu.crypto import ed25519_ref as jref
+from stellar_core_tpu_torch.crypto import ed25519 as port_ed
 from stellar_core_tpu_torch.crypto import ed25519_ref as ref
 from stellar_core_tpu_torch.ops import ed25519_cuda
 from stellar_core_tpu_torch.ops import ed25519_kernel as K
@@ -61,6 +62,61 @@ def test_plain_verify_edge_vectors_match_spec_and_jax():
     for (pkb, sig, msg, label), g in zip(VECTORS, got.tolist()):
         assert g == jref.verify(pkb, sig, msg) == ref.verify(pkb, sig, msg), \
             label
+
+
+def test_port_cpu_backend_matches_spec_on_edge_vectors():
+    """tests/test_ed25519_edge.py::test_cpu_backend_matches_spec on the
+    port's CPU backend."""
+    for pk, sig, msg, label in VECTORS:
+        assert port_ed.raw_verify(pk, sig, msg) == ref.verify(pk, sig, msg), \
+            label
+
+
+def test_torsion_subgroup_structure():
+    """tests/test_ed25519_edge.py's case on the port's spec: the blacklist
+    covers the full 8-torsion subgroup."""
+    pts = ref._torsion_points()
+    assert len(pts) == 8
+    for pt in pts:
+        assert ref._is_identity(ref.scalar_mult(8, ref.to_extended(pt)))
+    assert (0, 1) in pts and (0, ref.P - 1) in pts
+    assert len(ref.SMALL_ORDER_ENCODINGS) == 10
+
+
+def _kernel_case_batch():
+    """tests/test_ed25519_kernel.py's batch: rows 0 and 9 valid; 1-8 a
+    tampered R, message, key, s >= L, non-canonical R and key, an all-zero
+    signature and another message's signature."""
+    rows = []
+    for i in range(10):
+        sk = SecretKey(sha256(b"kern%d" % i))
+        m = sha256(b"kmsg%d" % i)
+        rows.append([bytearray(sk.public_key().raw), bytearray(sk.sign(m)),
+                     bytearray(m)])
+    p = 2**255 - 19
+    rows[1][1][0] ^= 1
+    rows[2][2][0] ^= 1
+    rows[3][0][0] ^= 1
+    s = int.from_bytes(bytes(rows[4][1][32:]), "little") + ref.L
+    rows[4][1][32:] = s.to_bytes(32, "little")
+    rows[5][1][:32] = p.to_bytes(32, "little")
+    rows[6][0][:32] = (p + 1).to_bytes(32, "little")
+    rows[7][1][:] = bytes(64)
+    rows[8][1] = bytearray(bytes(rows[9][1]))
+    return [tuple(bytes(x) for x in r) for r in rows]
+
+
+@pytest.mark.parametrize("want", ["spec", "cpu_backend", "accept_pattern"])
+def test_kernel_case_batch(want):
+    """tests/test_ed25519_kernel.py's three cases on the port's plain
+    verify: the spec's verdicts, the CPU backend's, and valid only at rows
+    0 and 9."""
+    rows = _kernel_case_batch()
+    got = K.verify_batch(*(torch.from_numpy(x) for x in _arrays(rows)))
+    expect = {"spec": [ref.verify(*r) for r in rows],
+              "cpu_backend": [port_ed.raw_verify(*r) for r in rows],
+              "accept_pattern": [True] + [False] * 8 + [True]}[want]
+    assert got.tolist() == expect
 
 
 def test_wrapper_dispatches_cpu_tensors_to_plain_version():

@@ -155,3 +155,28 @@ def test_sha512_96_matches_hashlib_and_jax():
         assert d.tobytes() == hashlib.sha512(m.tobytes()).digest()
     np.testing.assert_array_equal(got, np.asarray(jax_sha512_96(
         jnp.asarray(msg))))
+
+
+def test_int_limbs_round_trip_matches_jax():
+    """tests/test_field25519.py::test_roundtrip_int_limbs on the port's
+    limbs, which equal the JAX package's."""
+    rng = np.random.default_rng(1)
+    edge = [0, 1, 2, 19, P - 1, P - 2, P - 19, 2**255 - 19 - 1, 2**252, 7]
+    for v in edge + _rand_ints(rng, 20):
+        np.testing.assert_array_equal(F.int_to_limbs(v), JF.int_to_limbs(v))
+        assert F.limbs_to_int(F.int_to_limbs(v)) == v % P
+
+
+def test_equality_and_parity_match_jax():
+    """tests/test_field25519.py::test_eq_parity on the port, which has no
+    ``eq`` or ``parity`` of its own: equality is ``is_zero`` of the
+    difference, parity is bit 0 of the canonical bytes."""
+    x, y = _limbs([5, P - 5, 5, 0, 1]), _limbs([5, 5, P - 5, 0, P - 1])
+    got = F.is_zero(F.sub(torch.from_numpy(x), torch.from_numpy(y)))
+    assert got.tolist() == [True, False, False, True, False]
+    assert got.tolist() == np.asarray(JF.eq(jnp.asarray(x),
+                                            jnp.asarray(y))).tolist()
+    z = _limbs([2, 3, P - 1, P - 2])
+    par = F.to_bytes(torch.from_numpy(z))[:, 0] & 1
+    assert par.tolist() == [0, 1, (P - 1) & 1, (P - 2) & 1]
+    assert par.tolist() == np.asarray(JF.parity(jnp.asarray(z))).tolist()

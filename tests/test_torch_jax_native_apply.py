@@ -1,0 +1,43 @@
+"""``tests/test_native_apply.py`` on the port: the native apply kernel
+against the Python apply.
+
+The file's own cases run as the very code of that file, with the
+package's dotted name written the port's and its imports of
+sibling test files rebound to their port modules
+(``test_torch_golden.port_module``); its fixtures go with them.
+Every case runs from its own directory.
+
+One case is left out by name (``NOT_ON_PORT_CASES``):
+``test_detlint_covers_native_apply_and_kernel_handle`` asserts a
+lock-annotated ``_applykernel_tried`` flag, which the port's native loader
+does not keep (its getters raise on a failed build); the port's handles
+are held by ``tests/test_torch_lint.py::
+test_native_handles_are_lock_annotated``.
+
+Its slow-marked hash-seed case starts ``python -c`` workers under different
+``PYTHONHASHSEED``s; their script imports the port's text of this
+file, written under the case's directory, and ends by asserting that
+the worker imported no JAX (``PORT_REPLACE``).
+
+Tolerance: the file's own.
+"""
+from .test_torch_golden import (assert_runs_on_the_port,
+                                assert_worker_on_the_port, port_module,
+                                port_modules_for_workers, _port_tests)
+from .test_torch_golden import in_tmp_path  # noqa: F401 (autouse)
+from .test_torch_jax_files import left_out
+
+LEAVE_OUT = left_out("test_native_apply")
+
+_M = port_module("test_native_apply")
+globals().update(_port_tests(_M, LEAVE_OUT))
+port_modules_for_workers = port_modules_for_workers(_M)
+
+
+def test_cases_run_on_the_port():
+    assert LEAVE_OUT == ("test_detlint_covers_native_apply_and_kernel_handle",)
+    assert_runs_on_the_port(_M, globals(), LEAVE_OUT)
+
+
+def test_hashseed_worker_runs_the_port():
+    assert_worker_on_the_port(_M._HASHSEED_WORKER)

@@ -126,3 +126,25 @@ def test_both_linters_give_the_same_findings(rel):
             f"{pkg}.", "PKG.") for f in findings]
 
     assert norm(got, PKG) == norm(want, "stellar_core_tpu")
+
+
+def test_native_handles_are_lock_annotated():
+    """tests/test_native_apply.py::test_detlint_covers_native_apply_and_
+    kernel_handle on the port: ``apply`` rides detlint's consensus scope,
+    and the native loader's library handles stay lock-annotated, so the
+    guarded-by audit bites on them.  The port has no ``_applykernel_tried``
+    flag: its getters raise on a failed build instead of remembering it
+    (a kept divergence)."""
+    import os
+
+    from stellar_core_tpu_torch.tools.lint.engine import (CONSENSUS_DIRS,
+                                                          REPO, _parse_file)
+
+    assert "apply" in CONSENSUS_DIRS
+    rel = f"{PKG}/native/__init__.py"
+    with open(os.path.join(REPO, rel)) as f:
+        info = _parse_file(rel, f.read())
+    guarded = {info.line_text(line).split("=")[0].strip().split(":")[0]
+               .strip() for line in info.guards}
+    assert {"_lib", "_xdrpack_mod", "_applykernel_mod"} <= guarded
+    assert not any(name.endswith("_tried") for name in guarded)

@@ -12,14 +12,13 @@ Tolerance: exact (verdicts, counts); the overhead case keeps its bound.
 from .test_torch_golden import TESTS, _as_port_module, _port_tests
 
 _LD = _as_port_module("torch_lockdep", TESTS / "test_lockdep.py")
-witness = _LD.witness   # the file's fixture, on the port's witness
-globals().update(_port_tests(_LD))
+globals().update(_port_tests(_LD))   # its fixture ``witness`` too
 
 
 def test_lockdep_cases_run_on_the_port():
     text = (TESTS / "test_lockdep.py").read_text()
-    names = set(_port_tests(_LD))
+    names = {n for n in _port_tests(_LD) if n.startswith("test_")}
     assert len(names) == text.count("\ndef test_") == 13
-    assert names <= set(globals())
+    assert names <= set(globals()) and "witness" in globals()
     assert _LD.lockdep.__name__ == "stellar_core_tpu_torch.utils.lockdep"
     assert _LD.WitnessLock.__module__ == "stellar_core_tpu_torch.utils.lockdep"

@@ -127,3 +127,23 @@ def test_accept_through_v_blocking_path():
                              [False, True, False, False]])
     got = Q.federated_accept(Q.local_qset(t, 0), t, voted, accepted)
     assert got.tolist() == [True, False]
+
+
+def test_qset_to_plain_depth_fallback():
+    """tests/test_quorum.py's case on the port: a 2-level qset has a
+    tensor form, a 3-level one has none (the host walk takes it)."""
+    from stellar_core_tpu_torch.scp import make_qset
+    from stellar_core_tpu_torch.scp.local_node import qset_to_plain
+    from stellar_core_tpu_torch.xdr import types as T
+
+    a, b = b"\x01" * 32, b"\x02" * 32
+    two = T.SCPQuorumSet.make(
+        threshold=1, validators=[T.account_id(a)],
+        innerSets=[make_qset(1, [b])])
+    assert qset_to_plain(two) is not None
+    three = T.SCPQuorumSet.make(
+        threshold=1, validators=[],
+        innerSets=[T.SCPQuorumSet.make(
+            threshold=1, validators=[T.account_id(a)],
+            innerSets=[make_qset(1, [b])])])
+    assert qset_to_plain(three) is None

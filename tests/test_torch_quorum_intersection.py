@@ -288,6 +288,17 @@ class TestChecker:
         res = QI.check_quorum_intersection(qmap, use_device=False)
         assert res.ok == brute_force_disjoint(qmap)
 
+    def test_herder_endpoint(self):
+        from stellar_core_tpu_torch.main import Application, test_config
+        from stellar_core_tpu_torch.utils.clock import ClockMode, VirtualClock
+
+        app = Application(VirtualClock(ClockMode.VIRTUAL_TIME),
+                          test_config())
+        app.start()
+        res = app.herder.check_quorum_intersection()
+        assert res.ok  # standalone self-quorum trivially intersects
+        app.graceful_stop()
+
 
 # ---------------------------------------------------------------------------
 # the port against the JAX package, tier by tier

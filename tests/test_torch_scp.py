@@ -13,7 +13,8 @@ on ``device="cpu"``).
    backend raises no ``TallyMismatch``.
 3. A 3-level quorum set falls back to the host with the same
    ``host_fallbacks`` as the JAX engine.
-4. A tensor backend with no device given raises where there is no GPU.
+4. A tensor backend with no device given raises where there is no GPU, and
+   ``TallyEngine`` takes the reference's ``(slot, backend)`` call (C5).
 5. The tally engine's tensor cache: its key equals the JAX engine's for
    the same envelopes, it keeps no qset object over many builds with
    fresh qset objects, and the port's detlint finds ``scp/tally.py``
@@ -411,6 +412,36 @@ def test_tensor_backend_without_device_raises_without_gpu(backend):
         PS.SCP(drv, V[0], True, qset, tally_backend=backend)
     host = PS.SCP(drv, V[0], True, qset)
     assert host.tally_device is None and host.get_slot(1).tally is None
+
+
+def test_tally_engine_takes_the_reference_signature():
+    """``TallyEngine(slot, backend, device=None)``, as the JAX engine is
+    called with ``(slot, backend)``: a tensor engine with no device
+    resolves the default device (raising where there is no GPU, never a
+    TypeError), a host engine needs none, and ``device="cpu"`` tallies as
+    the JAX engine does."""
+    from stellar_core_tpu.scp.tally import TallyEngine as JaxTallyEngine
+
+    pnet, _ = _network("port", 4, "host")
+    jnet, _ = _network("jax", 4)
+    (_, pslot, penv), (_, jslot, jenv) = (_slot_envelopes(pnet)[0],
+                                          _slot_envelopes(jnet)[0])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TallyEngine(pslot, "tensor")
+    host = TallyEngine(pslot, "host")
+    assert host.device is None
+    assert host.federated_ratify(lambda st: True, penv) is None
+    eng, je = TallyEngine(pslot, "tensor", "cpu"), JaxTallyEngine(jslot,
+                                                                   "tensor")
+    assert eng.device == torch.device("cpu")
+    for voted in (lambda st: True, lambda st: False):
+        assert eng.federated_ratify(voted, penv) == \
+            je.federated_ratify(voted, jenv) is not None
+        assert eng.federated_accept(voted, voted, penv) == \
+            je.federated_accept(voted, voted, jenv) is not None
+    assert eng._cache_key == je._cache_key
+    assert eng.tensor_tallies == je.tensor_tallies == 4
 
 
 # -- the tensor cache's key --------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's ``tools/fuzz_bench`` against the repository's
 ``tools/fuzz_bench.py`` on the CPU (every network on ``cpu`` / ``host``):
 the known-bad schedule fails with the same class and failure fingerprint
-in both packages; the slice-evaluation A/B and the tool's ``main``; and,
+in both packages, and the same with the crank profiler armed (as every
+fleet run arms it); the slice-evaluation A/B and the tool's ``main``; and,
 in the slow set, the whole known-bad proof (found, ddmin-minimized,
 persisted, replayed) and the smoke campaign's per-schedule results at the
 JAX tool's parameters.
@@ -39,6 +40,26 @@ def test_known_bad_run_equals_the_jax_package(tmp_path, jax_host_tiers):
     for key in ("schedule_id", "failure_class", "failure_fingerprint",
                 "fingerprint", "novelty"):
         assert mine[key] == theirs[key], key
+
+
+def test_crank_profiled_run_is_the_same_run_with_a_profile(tmp_path,
+                                                           capsys):
+    """The fleet runs' hook: the network a schedule builds arms its crank
+    profiler, the run's result is the unprofiled run's, and the progress
+    lines name the network's buckets."""
+    from stellar_core_tpu_torch.simulation.fuzz import known_bad_schedule
+
+    run = FB.runner("cpu", str(tmp_path))
+    plain = run(known_bad_schedule())
+    with FB.crank_profiled(0.05) as sims:
+        profiled = run(known_bad_schedule())
+    for key in ("schedule_id", "failure_class", "failure_fingerprint",
+                "novelty"):
+        assert profiled[key] == plain[key], key
+    rep = sims[-1].crank_report()
+    assert rep["cranks"] > 0 and rep["virtual_s"] > 0
+    assert rep["buckets_s"]["consensus"] > 0
+    assert "progress: {'buckets_s'" in capsys.readouterr().err
 
 
 def test_slice_eval_ab_verdicts_equal_the_jax_tool():

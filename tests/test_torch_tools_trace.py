@@ -28,28 +28,16 @@ import pytest
 from stellar_core_tpu_torch.simulation import simulation as port_sim
 from stellar_core_tpu_torch.tools import fleet_scrape, trace_view
 
-from .test_torch_golden import TESTS, _as_port_module, _port_tests
+from .test_torch_golden import TESTS, _port_tests, port_module
 
 REPO = TESTS.parent
 HOST = {"CRYPTO_BACKEND": "cpu", "SCP_TALLY_BACKEND": "host"}
 
-_as_port_module("torch_golden_txtest", TESTS / "txtest.py")
-_as_port_module("torch_observatory_simulation", TESTS / "test_simulation.py",
-                **{"from tests.txtest import TestAccount":
-                   "from torch_golden_txtest import TestAccount"})
-_OBS = _as_port_module(
-    "torch_observatory", TESTS / "test_observatory.py",
-    **{"from tests.test_simulation import":
-       "from torch_observatory_simulation import",
-       "from tools import fleet_scrape":
-       "from stellar_core_tpu_torch.tools import fleet_scrape"})
+_OBS = port_module("test_observatory")
 _OBS.core = functools.partial(port_sim.core, device="cpu", **HOST)
 globals().update(_port_tests(_OBS))
 
-_TRACING = _as_port_module(
-    "torch_tracing_view", TESTS / "test_tracing.py",
-    **{"from tools.trace_view import render":
-       "from stellar_core_tpu_torch.tools.trace_view import render"})
+_TRACING = port_module("test_tracing")
 slow_close = _TRACING.slow_close   # the module-scoped fixture, on the port
 
 
