@@ -27,6 +27,7 @@ except ImportError:
     # bit-identical semantics, so nodes and tests still run.
     _HAVE_OPENSSL = False
 
+from ..utils.tracing import stopwatch
 from .sha import sha256
 
 # --- verify-sig cache (ref: src/crypto/SecretKey.cpp:44-50) -----------------
@@ -34,6 +35,10 @@ _VERIFY_CACHE_SIZE = 0xFFFF
 _verify_cache: dict[bytes, bool] = {}
 _cache_hits = 0
 _cache_misses = 0
+# every miss's verify since the process started: (count, seconds); never
+# reset, so a caller's before/after difference is never negative
+_miss_verifies = 0
+_miss_seconds = 0.0
 
 
 def _cache_key(pubkey: bytes, signature: bytes, message: bytes) -> bytes:
@@ -43,6 +48,12 @@ def _cache_key(pubkey: bytes, signature: bytes, message: bytes) -> bytes:
 
 def verify_cache_stats() -> tuple[int, int]:
     return _cache_hits, _cache_misses
+
+
+def verify_miss_stats() -> tuple[int, float]:
+    """(verifies, seconds) of the host verifies that missed the cache
+    since the process started."""
+    return _miss_verifies, _miss_seconds
 
 
 def clear_verify_cache() -> None:
@@ -102,14 +113,17 @@ def verify_sig(pubkey: bytes, signature: bytes, message: bytes) -> bool:
     consult the cache; on miss verify and insert, evicting the oldest
     entry at capacity.
     """
-    global _cache_hits, _cache_misses
+    global _cache_hits, _cache_misses, _miss_verifies, _miss_seconds
     key = _cache_key(pubkey, signature, message)
     hit = _verify_cache.get(key)
     if hit is not None:
         _cache_hits += 1
         return hit
     _cache_misses += 1
-    ok = raw_verify(pubkey, signature, message)
+    with stopwatch() as sw:
+        ok = raw_verify(pubkey, signature, message)
+    _miss_verifies += 1
+    _miss_seconds += sw.seconds
     if len(_verify_cache) >= _VERIFY_CACHE_SIZE:
         # deterministic FIFO eviction (oldest insertion) — the reference
         # evicts randomly, but an unseeded RNG in the crypto tier trips

@@ -40,6 +40,10 @@ class Database:
         self.slow_query_seconds = slow_query_seconds
         self.queries = 0       # guarded-by: _write_lock
         self.slow_queries = 0  # guarded-by: _write_lock
+        # each thread's commits (count, seconds) since it last took them
+        # (take_commit_stats): the close thread and the close's tail
+        # worker each account for their own flushes
+        self._commits = threading.local()
         guard_fields(self)
 
     # -- the reference's session surface ------------------------------------
@@ -71,7 +75,20 @@ class Database:
 
     def commit(self) -> None:
         with self._write_lock:
+            t0 = time.perf_counter()
             self.conn.commit()
+            dt = time.perf_counter() - t0
+        mine = self._commits
+        mine.n = getattr(mine, "n", 0) + 1
+        mine.seconds = getattr(mine, "seconds", 0.0) + dt
+
+    def take_commit_stats(self) -> tuple:
+        """(commits, seconds flushing them) that the calling thread made
+        since it last took them; the count starts again from zero."""
+        mine = self._commits
+        out = (getattr(mine, "n", 0), getattr(mine, "seconds", 0.0))
+        mine.n, mine.seconds = 0, 0.0
+        return out
 
     @contextmanager
     def write_txn(self):

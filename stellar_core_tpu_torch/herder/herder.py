@@ -12,9 +12,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+from ..crypto.ed25519 import verify_miss_stats
 from ..ledger.ledger_manager import LedgerCloseData
 from ..scp import SCP, EnvelopeState, SCPDriver, ValidationLevel
 from ..scp.local_node import make_qset, qset_hash
+from ..utils import tracing
 from ..utils.clock import VirtualTimer
 from ..xdr import XdrError, types as T, xdr_sha256
 from .tx_queue import TransactionQueue
@@ -27,6 +29,11 @@ LEDGER_VALIDITY_BRACKET = 100
 MAX_TIME_SLIP_SECONDS = 60
 NODE_EXPIRATION_SECONDS = 240
 SCP_EXTRA_LOOKBACK_LEDGERS = 3
+
+#: the phases of a manual close in the ledger's record, each a self time;
+#: the rest of the call is its ``unattributed`` time
+MANUAL_CLOSE_PHASES = ("trigger", "scp", "scp_persist", "close_ledger",
+                       "drain", "ledger_closed")
 
 
 class HerderState:
@@ -352,6 +359,23 @@ class Herder:
         # never re-announce them; the herder replays the close itself
         # once the value's tx set is fetched from a peer
         self._restored_externalized: Dict[int, bytes] = {}
+        # what the node measured toward the next ledger before its close
+        # (ms, counts): admission since the previous close, the trigger,
+        # SCP so far, the SCP history's write; the close's record starts
+        # from it (LedgerManager.seed_close_record)
+        self._record = self._new_record()
+        # runs while SCP works on the node's own nomination: its laps
+        # are SCP's self time
+        self._scp_clock = None
+
+    @staticmethod
+    def _new_record() -> dict:
+        return {"admit": 0.0, "admit_count": 0, "admit_verify": 0.0,
+                "admit_verify_count": 0}
+
+    def _note(self, ms: dict) -> None:
+        for k, v in ms.items():
+            self._record[k] = self._record.get(k, 0.0) + v
 
     @staticmethod
     def _build_qset(cfg):
@@ -475,6 +499,7 @@ class Herder:
     def recv_transaction(self, env) -> int:
         """HTTP 'tx' or peer TRANSACTION message -> queue
         (ref recvTransaction :458)."""
+        verifies0, verify_s0 = verify_miss_stats()
         with self.app.tracer.span("herder.tx.admit") as sp:
             res = self.tx_queue.try_add(env)
             if res == TransactionQueue.ADD_STATUS_PENDING:
@@ -482,6 +507,12 @@ class Herder:
             if sp.args is None:
                 sp.args = {}
             sp.args["status"] = res
+        verifies, verify_s = verify_miss_stats()
+        rec = self._record
+        rec["admit"] += sp.seconds * 1000.0
+        rec["admit_count"] += 1
+        rec["admit_verify"] += (verify_s - verify_s0) * 1000.0
+        rec["admit_verify_count"] += verifies - verifies0
         return res
 
     # -- SCP plumbing -------------------------------------------------------
@@ -627,7 +658,7 @@ class Herder:
         lcl_hash = lm.last_closed_hash()
         slot = lm.last_closed_seq() + 1
 
-        with self.app.tracer.span("herder.trigger.txset", slot=slot):
+        with self.app.tracer.span("herder.trigger.txset", slot=slot) as sp:
             frames = self.tx_queue.get_transactions()
             # exact-key footprint prefetch (ledger/close_pipeline.py):
             # a worker batch-loads the candidates' declared LedgerKey
@@ -648,6 +679,7 @@ class Herder:
             # close's critical path; the close consumes the cached plan
             # when this exact set externalizes (apply/executor.py)
             self.app.parallel_apply.preplan(tx_set, lm.root)
+        self._note({"trigger": sp.seconds * 1000.0})
 
         close_time = max(
             int(self.app.clock.system_now()),
@@ -663,7 +695,16 @@ class Herder:
         # single-node standalone networks externalize through the same SCP
         # slot (self-quorum makes the round instant)
         self.app.txtracer.stamp_frames(tx_set.frames, "nominate")
-        self.scp.nominate(slot, value, lcl_hash)
+        self._scp_clock = tracing.stopwatch().__enter__()
+        try:
+            self.scp.nominate(slot, value, lcl_hash)
+        finally:
+            clock, self._scp_clock = self._scp_clock, None
+        scp = {"scp": clock.lap() * 1000.0}
+        if lm.last_closed_seq() == slot:  # the slot closed inside SCP
+            lm.add_close_phases(scp)
+        else:
+            self._note(scp)
         if not self.app.config.MANUAL_CLOSE:
             self._arm_trigger()
 
@@ -679,6 +720,8 @@ class Herder:
         """ref valueExternalized :315 + processExternalized :266."""
         if slot_index <= self.app.ledger_manager.last_closed_seq():
             return  # already applied (e.g. restored SCP state at boot)
+        if self._scp_clock is not None:
+            self._note({"scp": self._scp_clock.lap() * 1000.0})
         sv = T.StellarValue.decode(value)
         tx_set = self.pending_envelopes.get_tx_set(sv.txSetHash)
         if tx_set is None:
@@ -696,11 +739,23 @@ class Herder:
             self.out_of_sync_timer.cancel()
         if not self.app.config.MANUAL_CLOSE:
             self._arm_tracking_timer()
-        self._persist_scp_history(slot_index)
+        db = self.app.database
+        db.take_commit_stats()  # this ledger's flushes on this thread
+        with tracing.stopwatch() as sw:
+            self._persist_scp_history(slot_index)
+        self._note({"scp_persist": sw.seconds * 1000.0})
         lm = self.app.ledger_manager
         if slot_index == lm.last_closed_seq() + 1:
+            lm.seed_close_record(
+                {**self._record, **self.tx_queue.take_admit_stages()})
+            self._record = self._new_record()
             lm.close_ledger(LedgerCloseData(slot_index, tx_set, sv))
-            self.ledger_closed(slot_index)
+            with tracing.stopwatch() as sw:
+                self.ledger_closed(slot_index)
+            commits, commit_s = db.take_commit_stats()
+            lm.add_close_phases({"ledger_closed": sw.seconds * 1000.0,
+                                 "db_commits": commits,
+                                 "db_commit_ms": commit_s * 1000.0})
         else:
             # gapped: buffer only — housekeeping runs per actually-closed
             # ledger via ledger_closed (aging the queue for slots we never
@@ -709,6 +764,8 @@ class Herder:
                 slot_index, tx_set, sv)
         for cb in self.on_externalized:
             cb(slot_index, sv)
+        if self._scp_clock is not None:
+            self._scp_clock.lap()  # what ran here was not SCP's work
 
     def ledger_closed(self, slot_index: int) -> None:
         """Housekeeping after a ledger actually closes locally (also called
@@ -792,7 +849,21 @@ class Herder:
     # -- manual close (test/standalone) -------------------------------------
 
     def manual_close(self) -> int:
-        """Close exactly one ledger now (ref CommandHandler manualclose)."""
+        """Close exactly one ledger now (ref CommandHandler manualclose).
+
+        The ledger's record (``LedgerManager.last_close_phases``) gets the
+        call's wall time, its start on the Unix clock and the part of it
+        that no phase of ``MANUAL_CLOSE_PHASES`` holds."""
         assert self.app.config.MANUAL_CLOSE
-        self.trigger_next_ledger()
-        return self.app.ledger_manager.last_closed_seq()
+        lm = self.app.ledger_manager
+        seq = lm.last_closed_seq()
+        with tracing.stopwatch() as sw:
+            self.trigger_next_ledger()
+        if lm.last_closed_seq() > seq:
+            whole = sw.seconds * 1000.0
+            rec = lm.add_close_phases({
+                "manual_close": whole,
+                "t0_unix_ns": self.app.tracer.unix_ns(sw.t0)})
+            parts = sum(rec.get(k, 0.0) for k in MANUAL_CLOSE_PHASES)
+            lm.add_close_phases({"unattributed": max(0.0, whole - parts)})
+        return lm.last_closed_seq()

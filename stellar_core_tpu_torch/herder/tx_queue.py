@@ -13,6 +13,10 @@ from ..ledger.ledger_txn import LedgerTxn
 from ..transactions import TransactionFrame  # noqa: F401 (typing)
 from ..transactions.frame import tx_frame_from_envelope
 from ..transactions.frame import TC
+from ..utils.tracing import stopwatch
+
+#: the stages of ``try_add`` whose seconds it adds up between closes
+ADMIT_STAGES = ("admit_frame", "admit_checks", "admit_queue")
 
 
 class AccountTxs:
@@ -40,6 +44,8 @@ class TransactionQueue:
         self.banned: List[set] = [set() for _ in range(self.BAN_DEPTH)]
         self.known: Dict[bytes, TransactionFrame] = {}
         self._ops_count = 0  # running total (capacity checks are O(1))
+        # seconds in each admission stage since the herder last took them
+        self._admit_s = dict.fromkeys(ADMIT_STAGES, 0.0)
 
     # -- admission ---------------------------------------------------------
 
@@ -48,7 +54,34 @@ class TransactionQueue:
 
         ``recv_ts``: overlay-receive timestamp token (a value from
         ``app.txtracer.note_recv()``) so the lifecycle tracker's
-        recv->admit delta covers the decode/validity/signature cost."""
+        recv->admit delta covers the decode/validity/signature cost.
+
+        Each stage's seconds add up in ``take_admit_stages``."""
+        spent = self._admit_s
+        with stopwatch() as sw:
+            got = self._admit_frame(env)
+        spent["admit_frame"] += sw.seconds
+        if isinstance(got, int):
+            return got
+        frame, h = got
+        with stopwatch() as sw:
+            status = self._admit_checks(frame)
+        spent["admit_checks"] += sw.seconds
+        if status is not None:
+            return status
+        with stopwatch() as sw:
+            status = self._admit_queue(frame, h, recv_ts)
+        spent["admit_queue"] += sw.seconds
+        return status
+
+    def take_admit_stages(self) -> Dict[str, float]:
+        """ms in each stage of ``try_add`` since the last take."""
+        out = {k: v * 1000.0 for k, v in self._admit_s.items()}
+        self._admit_s = dict.fromkeys(ADMIT_STAGES, 0.0)
+        return out
+
+    def _admit_frame(self, env):
+        """The frame and its full hash, or the status that refuses it."""
         network_id = self.app.config.network_id()
         try:
             frame = tx_frame_from_envelope(network_id, env)
@@ -59,7 +92,11 @@ class TransactionQueue:
             return self.ADD_STATUS_DUPLICATE
         if any(h in b for b in self.banned):
             return self.ADD_STATUS_BANNED
+        return frame, h
 
+    def _admit_checks(self, frame) -> Optional[int]:
+        """The account's room, its sequence chain and full validity (the
+        signature check inside); None when the frame passes."""
         src = frame.source_account_id()
         acct = self.accounts.get(src)
         # cheap capacity check BEFORE the expensive validity/signature work
@@ -90,12 +127,17 @@ class TransactionQueue:
         # reference pays the re-check in C++; here it would dominate the
         # close trigger)
         frame.checked_valid_lcl = lm.last_closed_seq()
+        return None
 
+    def _admit_queue(self, frame, h: bytes, recv_ts) -> int:
+        """Room in the queue, then the insert."""
         # global capacity: evict the cheapest tails, or reject the
         # newcomer if IT is the cheapest (ref TxQueueLimiter::canAddTx)
         if not self._make_room_for(frame):
             return self.ADD_STATUS_TRY_AGAIN_LATER
 
+        src = frame.source_account_id()
+        acct = self.accounts.get(src)
         if acct is None:
             acct = self.accounts[src] = AccountTxs()
         acct.frames.append(frame)

@@ -28,6 +28,14 @@ _GC_SEQ_LOCK = lockdep.register_lock(threading.Lock(), "ledger.gc_seq")
 _LAST_GC_SEQ = -1  # guarded-by: _GC_SEQ_LOCK
 
 
+def _add_phases(record: dict, ms: dict) -> None:
+    """Add each value to the record's (ms round to the record's 3
+    decimals; counts stay whole)."""
+    for k, v in ms.items():
+        total = record.get(k, 0) + v
+        record[k] = round(total, 3) if isinstance(total, float) else total
+
+
 class LedgerCloseData:
     """(ledgerSeq, TxSetFrame, StellarValue) bundle handed from Herder
     (ref src/herder/LedgerCloseData.h:23)."""
@@ -65,10 +73,15 @@ class LedgerManager:
         # comes from the flight recorder's spans (utils/tracing.py), so
         # the same measurement feeds this dict, the span ring, the
         # watchdog, and the Prometheus exposition.
+        #
+        # The record is the node's account of the whole ledger: the
+        # herder seeds it with what it measured before the close
+        # (admission since the previous close, the trigger, SCP, the SCP
+        # history's write: seed_close_record) and folds in what follows
+        # it (add_close_phases); the close adds its own wall time and its
+        # drain (_close_ledger_timed), the tail its phases and flushes.
         self.last_close_phases: dict = {}
-        # per-op-type apply cost of the most recent close (ms), the
-        # attribution ROADMAP item 7 asks for (payment vs. DEX crossing)
-        self.last_apply_op_costs: dict = {}
+        self._record_seed: dict = {}
 
     # -- genesis / load ----------------------------------------------------
 
@@ -165,11 +178,26 @@ class LedgerManager:
         finally:
             prof.scope_end(tok)
 
+    def seed_close_record(self, ms: dict) -> None:
+        """Phases (ms) that the node measured for the next ledger before
+        its close starts; the close's record begins with them."""
+        self._record_seed = dict(ms)
+
+    def add_close_phases(self, ms: dict) -> dict:
+        """Add phases (ms, or counts) measured after the close to the
+        record of the ledger it closed, under the lock that the tail's
+        deferred phases take too; a copy of the record after it."""
+        with self._phases_lock:
+            _add_phases(self.last_close_phases, ms)
+            return dict(self.last_close_phases)
+
     def _close_ledger_timed(self, close_data: LedgerCloseData) -> None:
+        from ..utils import tracing
         from ..utils.logging import LogSlowExecution
 
         tracer = self.app.tracer
-        with self.metrics.timer("ledger.ledger.close").time_scope(), \
+        with tracing.stopwatch() as wall, \
+                self.metrics.timer("ledger.ledger.close").time_scope(), \
                 LogSlowExecution(f"closeLedger {close_data.ledger_seq}",
                                  threshold_seconds=2.0):
             root = None
@@ -185,12 +213,15 @@ class LedgerManager:
                 # JSON + one summary line)
                 if root is not None:
                     tracer.commit_close(close_data.ledger_seq, root)
-        if self.pipeline.enabled and self.pipeline.eager_drain:
-            # test/standalone rigs: make the deferred tail durable
-            # before returning so post-close reads keep sequential
-            # semantics (real nodes overlap; see close_pipeline.py)
-            self.pipeline.drain()
-            self.pipeline.stats["eager_drains"] += 1
+        with tracing.stopwatch() as drain:
+            if self.pipeline.enabled and self.pipeline.eager_drain:
+                # test/standalone rigs: make the deferred tail durable
+                # before returning so post-close reads keep sequential
+                # semantics (real nodes overlap; see close_pipeline.py)
+                self.pipeline.drain()
+                self.pipeline.stats["eager_drains"] += 1
+        self.add_close_phases({"close_ledger": wall.seconds * 1000.0,
+                               "drain": drain.seconds * 1000.0})
 
     def _phase(self, phases: dict, name: str, seconds: float) -> None:
         phases[name] = phases.get(name, 0.0) + seconds * 1000.0
@@ -210,7 +241,7 @@ class LedgerManager:
         from ..utils import tracing
 
         tracer = self.app.tracer
-        phases: dict = {}
+        phases, self._record_seed = self._record_seed, {}
         total_sw = tracing.stopwatch().__enter__()
 
         with LedgerTxn(self.root) as ltx:
@@ -347,7 +378,6 @@ class LedgerManager:
                     count=count)
                 cursor += total_s
             phases["apply_ops"] = op_ms
-            self.last_apply_op_costs = op_ms
 
             # phase 3: upgrades — each validated against local policy
             # before applying; invalid remote upgrades are skipped, not
@@ -552,11 +582,17 @@ class LedgerManager:
         tail_ms["tail_total"] = round(
             sum(s for s in tail_s.values()) * 1000.0, 3)
         tail_ms["tail_deferred"] = True
+        # the tail worker's flushes: this worker runs only tails, so
+        # they are this ledger's
+        n, seconds = self.app.database.take_commit_stats()
+        flushes = {"db_commits": n, "db_commit_ms": seconds * 1000.0}
         with self._phases_lock:
             st.phases.update(tail_ms)
+            _add_phases(st.phases, flushes)
             lcp = self.last_close_phases
             if lcp is not st.phases and lcp.get("_seq") == st.seq:
                 lcp.update(tail_ms)
+                _add_phases(lcp, flushes)
 
     def _post_close_gc(self, seq: int) -> None:
         """DEFERRED_GC: young-gen collection after every close, full

@@ -25,6 +25,11 @@ Design
   modules: the perf_counter reads live HERE (utils/ is outside
   detlint's consensus scan), so instrumentation never needs
   det-wallclock baseline entries.
+- Spans are on ``perf_counter``; a device profiler (``torch.profiler``)
+  stamps its events on the Unix clock.  Each tracer measures the offset
+  between the two once, at construction (``unix_ns``), and an exported
+  trace carries its earliest span on the Unix clock (``base_unix_ns``),
+  so a persisted slow close can be laid over a device trace.
 
 Per-op-type apply attribution: the close's apply loop installs an op
 cost collector (``collect_op_costs``); ``transactions/frame.py`` feeds
@@ -36,7 +41,7 @@ from __future__ import annotations
 import json
 import threading
 from collections import deque
-from time import perf_counter
+from time import perf_counter, perf_counter_ns, time_ns
 from typing import Dict, List, Optional, Tuple
 
 from .lockdep import register_lock
@@ -133,6 +138,13 @@ class _Stopwatch:
         self.seconds = perf_counter() - self.t0
         return False
 
+    def lap(self) -> float:
+        """Seconds since the start or the previous lap; the next lap
+        counts from now."""
+        t = perf_counter()
+        seconds, self.t0 = t - self.t0, t
+        return seconds
+
 
 def stopwatch() -> _Stopwatch:
     return _Stopwatch()
@@ -195,15 +207,21 @@ def collect_op_costs() -> _CollectScope:
 # -- the tracer --------------------------------------------------------------
 
 class CloseRecord:
-    __slots__ = ("seq", "root_id", "duration_s", "spans", "truncated")
+    """``unix_offset_ns``: the recording tracer's Unix-clock offset
+    (``Tracer.unix_offset_ns``), None for a record built by hand."""
+
+    __slots__ = ("seq", "root_id", "duration_s", "spans", "truncated",
+                 "unix_offset_ns")
 
     def __init__(self, seq: int, root_id: int, duration_s: float,
-                 spans: List[Span], truncated: int):
+                 spans: List[Span], truncated: int,
+                 unix_offset_ns: Optional[int] = None):
         self.seq = seq
         self.root_id = root_id
         self.duration_s = duration_s
         self.spans = spans
         self.truncated = truncated
+        self.unix_offset_ns = unix_offset_ns
 
 
 class Tracer:
@@ -224,6 +242,14 @@ class Tracer:
         self._tls = threading.local()
         # persisted watchdog traces this process wrote: (seq, path)
         self.slow_close_traces: List[Tuple[int, str]] = []
+        # Unix clock (ns) less perf_counter (ns), read once: the profiler
+        # stamps device events on the Unix clock, spans use perf_counter
+        self.unix_offset_ns = time_ns() - perf_counter_ns()
+
+    def unix_ns(self, t: float) -> int:
+        """A ``perf_counter`` reading (a span's ``t0``/``t1``) on the
+        Unix clock, in ns."""
+        return round(t * 1e9) + self.unix_offset_ns
 
     # -- span plumbing -------------------------------------------------------
 
@@ -321,7 +347,7 @@ class Tracer:
                 truncated = len(spans) - MAX_SPANS_PER_CLOSE
                 spans = spans[-MAX_SPANS_PER_CLOSE:]
             rec = CloseRecord(seq, root.span_id, root.seconds, spans,
-                              truncated)
+                              truncated, self.unix_offset_ns)
             self._ring.append(rec)
             if self.metrics is not None:
                 # inside the lock on purpose: a tail span routed into
@@ -438,7 +464,9 @@ def summarize_ring(records: List[CloseRecord], k: int = 10) -> List[dict]:
 def chrome_trace(rec: CloseRecord) -> dict:
     """Chrome ``trace_event`` JSON (the "X" complete-event form), with
     span/parent ids in args so cross-thread parenting survives export.
-    Timestamps are µs relative to the record's earliest span."""
+    Timestamps are µs relative to the record's earliest span; the
+    metadata's ``base_unix_ns`` is that span's start on the Unix clock
+    (a device profiler's), when the record came from a tracer."""
     if rec.spans:
         base = min(sp.t0 for sp in rec.spans)
     else:
@@ -455,11 +483,13 @@ def chrome_trace(rec: CloseRecord) -> dict:
             ev["args"].update({k: v for k, v in sp.args.items()
                                if isinstance(v, (int, float, str, bool))})
         events.append(ev)
-    return {"traceEvents": events,
-            "metadata": {"ledger": rec.seq,
-                         "duration_ms": round(rec.duration_s * 1000.0, 3),
-                         "root_span_id": rec.root_id,
-                         "truncated_spans": rec.truncated}}
+    meta = {"ledger": rec.seq,
+            "duration_ms": round(rec.duration_s * 1000.0, 3),
+            "root_span_id": rec.root_id,
+            "truncated_spans": rec.truncated}
+    if rec.unix_offset_ns is not None:
+        meta["base_unix_ns"] = round(base * 1e9) + rec.unix_offset_ns
+    return {"traceEvents": events, "metadata": meta}
 
 
 # -- access helpers ----------------------------------------------------------

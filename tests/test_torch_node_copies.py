@@ -23,14 +23,14 @@ JAX = REPO / "stellar_core_tpu"
 PORT = REPO / "stellar_core_tpu_torch"
 
 COPIES = """
-crypto/sha.py crypto/strkey.py crypto/shorthash.py crypto/ed25519.py
+crypto/sha.py crypto/strkey.py crypto/shorthash.py
 native/xdr_pack.c native/bucket_merge.cpp native/apply_kernel.cpp
 native/quorum_enum.cpp
 xdr/__init__.py xdr/runtime.py xdr/types.py
 utils/__init__.py utils/clock.py utils/scheduler.py utils/metrics.py
 utils/txtrace.py utils/floodtrace.py utils/vitals.py utils/minitoml.py
-utils/lockdep.py utils/tracing.py
-database/__init__.py database/database.py
+utils/lockdep.py
+database/__init__.py
 ledger/__init__.py ledger/packed.py ledger/ledger_txn.py
 ledger/close_pipeline.py
 bucket/__init__.py bucket/index.py bucket/disk_bucket.py bucket/bucket_list.py
@@ -46,7 +46,7 @@ transactions/operations/sponsorship_ops.py
 invariant/__init__.py invariant/manager.py
 apply/__init__.py apply/footprint.py apply/planner.py apply/native_apply.py
 apply/executor.py
-herder/upgrades.py herder/tx_queue.py herder/quorum_health.py
+herder/upgrades.py herder/quorum_health.py
 herder/quorum_tracker.py
 scp/ballot.py scp/driver.py scp/qset_vector.py scp/quorum_sanity.py
 scp/statement.py scp/timeline.py
@@ -67,12 +67,16 @@ simulation/fuzz/minimize.py simulation/fuzz/campaign.py
 # signature batch, the overlay's per-crank envelope batch, the backend
 # switches, the node's device (and the simulation's, and the fuzz
 # executor's networks': tests/test_torch_fuzz.py), the native libraries'
-# build directory; the command line's own name.
+# build directory; the command line's own name.  The node's per-ledger
+# record: the queue's admission stages, the host verify's misses, the
+# database's commits by thread, the flight recorder's Unix clock
+# (tests/test_torch_ledger_record.py holds each).
 SEAMS = """
 crypto/__init__.py native/__init__.py herder/__init__.py herder/tx_set.py
 herder/herder.py ledger/ledger_manager.py main/config.py main/application.py
 overlay/manager.py simulation/simulation.py main/command_line.py __main__.py
 simulation/fuzz/schedule.py simulation/fuzz/executor.py
+herder/tx_queue.py crypto/ed25519.py database/database.py utils/tracing.py
 """.split()
 
 # The command line names its program: the JAX text with these strings

@@ -56,6 +56,8 @@ DEVICE_KEYWORDS = (
 )
 
 _REWRITE = "a rewrite in torch, held by its own port tests"
+_RECORD = ("the node's per-ledger record and its Unix clock "
+           "(tests/test_torch_ledger_record.py)")
 
 #: other kept differences: ``module`` (all of a rewritten module's) or
 #: ``module::name`` -> the reason
@@ -94,6 +96,14 @@ KEPT = {
     "native/__init__.py::library_path": "the same",
     "simulation/simulation.py::app_header_chain": "a node's stored headers, "
                                                   "for the chip run's checks",
+    "crypto/ed25519.py::verify_miss_stats": _RECORD,
+    "database/database.py::Database.take_commit_stats": _RECORD,
+    "herder/tx_queue.py::TransactionQueue.take_admit_stages": _RECORD,
+    "ledger/ledger_manager.py::LedgerManager.seed_close_record": _RECORD,
+    "ledger/ledger_manager.py::LedgerManager.add_close_phases": _RECORD,
+    "utils/tracing.py::CloseRecord.__init__": _RECORD + ": "
+                                              "``unix_offset_ns=None`` added",
+    "utils/tracing.py::Tracer.unix_ns": _RECORD,
 }
 
 
