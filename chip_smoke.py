@@ -1666,7 +1666,8 @@ def run_network(crypto_backend: str, tally_backend: str, device=None,
     overlay batch of 2 or more well-formed triples is one launch on its
     ``SIG_BATCH_BUCKETS`` size and every close with transactions one
     launch.  ``emit_line`` gets one dict a ledger.  Returns the run's
-    numbers."""
+    numbers, with its device tally calls (``tally_calls``) and the widest
+    of them (``widest_tally``, as ``TallyProbe.widest``)."""
     from stellar_core_tpu_torch.herder.tx_queue import TransactionQueue
     from stellar_core_tpu_torch.scp.scp import EnvelopeState
     from stellar_core_tpu_torch.scp.tally import TallyEngine, TallyMismatch
@@ -1788,11 +1789,12 @@ def run_network(crypto_backend: str, tally_backend: str, device=None,
                forged={"seq": NET_FORGE_SEQ, "primed": forged.primed,
                        "state": EnvelopeState(forged.state).name},
                hashes=[line["header_hash"] for line in out["ledgers"]],
-               tally_calls=sum(tallies.calls.values()))
+               tally_calls=sum(tallies.calls.values()),
+               widest_tally=tallies.widest)
     return out
 
 
-def network_phase(card_line: str, dev) -> tuple[int, int]:
+def network_phase(card_line: str, dev) -> tuple[int, int, int, tuple]:
     """The ``network`` phase: network A (``run_network`` on
     ``CRYPTO_BACKEND="cuda"``, ``both`` tallies, on ``dev``; the verify
     kernel's launches counted from 0) and network B (``"cpu"``, ``"host"``)
@@ -1800,9 +1802,9 @@ def network_phase(card_line: str, dev) -> tuple[int, int]:
     hash in every ledger; the kernel held against its plain version on the
     overlay batch that carried the forged envelope and on every distinct
     triple of A's launched overlay batches, and that batch replayed by CUDA
-    events.  Prints its lines; returns A's (overlay, close)
-    launches.  Raises on any failed check, and when the phase runs past
-    ``NET_MAX_SECONDS``."""
+    events.  Prints its lines; returns A's (overlay, close) launches, its
+    device tally calls and the widest of them.  Raises on any failed
+    check, and when the phase runs past ``NET_MAX_SECONDS``."""
     from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
     from stellar_core_tpu_torch.utils.device import (pad_signature_batch,
                                                      signature_columns)
@@ -1895,7 +1897,7 @@ def network_phase(card_line: str, dev) -> tuple[int, int]:
     if seconds > NET_MAX_SECONDS:
         raise AssertionError(f"the network phase took {seconds:.1f} s, "
                              f"over its {NET_MAX_SECONDS} s budget")
-    return overlay, close
+    return overlay, close, net_a["tally_calls"], net_a["widest_tally"]
 
 
 # -- the headline bench, data-parallel admission, the node's command line ----
@@ -2677,16 +2679,19 @@ class TallyProbe:
 
 def replay_counts(fn, quorum_ops) -> dict:
     """What one call of ``fn`` (a recorded live tally call) costs the host:
-    the contraction trips it runs (``quorum_ops._contract_trip`` counted),
-    and from torch.profiler the CUDA runtime calls by name
-    (``cudaLaunchKernel``, copies, synchronizations) and the device-side
-    kernels and copies.  Profiler counts are ``None`` where it saw no CUDA
-    activity."""
+    the torch contraction trips it runs (``quorum_ops._contract_trip``
+    counted; none where the call is one launch of the tally kernel, which
+    ``tally_kernel_launches`` counts), and from torch.profiler the CUDA
+    runtime calls by name (``cudaLaunchKernel``, copies,
+    synchronizations) and the device-side kernels and copies.  Profiler
+    counts are ``None`` where it saw no CUDA activity."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
+    from stellar_core_tpu_torch.ops import quorum_cuda
 
     fn()
     torch.cuda.synchronize()
+    launches0 = quorum_cuda.launches
     trips = []
     real = quorum_ops._contract_trip
 
@@ -2707,9 +2712,107 @@ def replay_counts(fn, quorum_ops) -> dict:
                                   if e.name.startswith("cuda"))
     device = [e.name for e in events if e.device_type == DeviceType.CUDA]
     copies = sum(1 for n in device if n.startswith(("Memcpy", "Memset")))
-    return {"trips": len(trips), "runtime_calls": dict(runtime) or None,
+    return {"trips": len(trips),
+            "tally_kernel_launches": quorum_cuda.launches - launches0,
+            "runtime_calls": dict(runtime) or None,
             "device_kernels": len(device) - copies if device else None,
             "device_copies": copies if device else None}
+
+
+class LaunchCount:
+    """A kernel wrapper's ``launches`` counter read path by path:
+    ``take(path)`` records the launches since the previous ``take`` (or
+    since construction) under ``path`` and returns them."""
+
+    def __init__(self, wrapper):
+        self.wrapper, self.last, self.by_path = wrapper, wrapper.launches, {}
+
+    def take(self, path: str) -> int:
+        now = self.wrapper.launches
+        self.by_path[path] = now - self.last
+        self.last = now
+        return self.by_path[path]
+
+
+def plain_card_tally(quorum_ops, kind, local_qs, qsets, rows) -> bool:
+    """The tally kernel's plain version on the card: the tally engine's
+    torch ops (``ops/quorum.py``, as ``TallyEngine`` runs them on a CPU
+    device) on the same card tensors."""
+    dev_rows = torch.from_numpy(rows).to(qsets.top_mem.device)
+    ratified = quorum_ops.federated_ratify(local_qs, qsets, dev_rows[-1:])[0]
+    if kind == "accept":
+        return bool(quorum_ops.is_v_blocking(local_qs, dev_rows[0:1])[0]
+                    | ratified)
+    return bool(ratified)
+
+
+def tally_kernel_times(widest: dict, quorum_ops) -> dict:
+    """The tally kernel against its plain version on recorded live calls
+    (label -> ``TallyProbe.widest``): on each, the kernel's verdict
+    (``ops/quorum_cuda.py``) = the torch ops' on the same card tensors, as
+    accept where the call has two rows and as ratify of its vote row.
+    Per call and kind, by CUDA events over ``LIVE_REPS`` back-to-back
+    calls: ``ms`` through the kernel's wrapper (copy in, launch, copy out,
+    synchronisation), ``plain_ms`` through the torch ops; ``kernel_ms``,
+    the kernel's device time by torch.profiler; and ``bound_ms``, the
+    floor of one call: a copy of the same row bytes in, one empty launch,
+    a one-byte copy out and a synchronisation, timed here, plus the bytes
+    the kernel reads (qsets and rows) at the HBM peak of 3.35 TB/s.
+    Raises where a verdict differs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stellar_core_tpu_torch.ops import quorum_cuda
+
+    out = {}
+    for label, (voters, live_kind, _, args) in widest.items():
+        local_qs, qsets, rows = args
+        kinds = ("accept", "ratify") if rows.shape[0] == 2 else ("ratify",)
+        for kind in kinds:
+            krows = rows if kind == "accept" else rows[-1:]
+            kernel = functools.partial(
+                quorum_cuda.tally_accept if kind == "accept" else
+                quorum_cuda.tally_ratify, local_qs, qsets, krows)
+            plain = functools.partial(plain_card_tally, quorum_ops, kind,
+                                      local_qs, qsets, krows)
+            got, want = kernel(), plain()
+            if got != want:
+                raise AssertionError(
+                    f"the tally kernel says {got} and its plain version "
+                    f"{want} on the widest {label} call as {kind}")
+            h_rows = torch.zeros(krows.size, dtype=torch.uint8).pin_memory()
+            d_rows = torch.empty_like(h_rows, device=qsets.top_mem.device)
+            h_out = torch.zeros(1, dtype=torch.uint8).pin_memory()
+            stream = torch.cuda.current_stream()
+
+            def floor():
+                d_rows.copy_(h_rows, non_blocking=True)
+                torch.cuda._sleep(0)
+                h_out.copy_(d_rows[:1], non_blocking=True)
+                stream.synchronize()
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(LIVE_REPS):
+                    kernel()
+            device_us = [e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and e.name.startswith("quorum_tally")]
+            read = sum(t.numel() * t.element_size()
+                       for t in (*qsets, *local_qs)) + krows.size
+            out[f"{label}.{kind}"] = {
+                "n": int(rows.shape[-1]), "voters": voters,
+                "live_kind": live_kind, "verdict": got,
+                "equal_to_plain": True,
+                "ms": cuda_ms(kernel, reps=LIVE_REPS),
+                "plain_ms": cuda_ms(plain, reps=LIVE_REPS),
+                "kernel_ms": (sum(device_us) / len(device_us) / 1e3
+                              if device_us else None),
+                "kernel_ms_samples": len(device_us),
+                "bound_ms": cuda_ms(floor, reps=LIVE_REPS)
+                + read / 3.35e12 * 1e3,
+                "bound_bytes_read": read}
+    return out
 
 
 def main() -> int:
@@ -2729,7 +2832,11 @@ def main() -> int:
     from stellar_core_tpu_torch.models import admission as A
     from stellar_core_tpu_torch.ops import ed25519_cuda, ed25519_kernel
     from stellar_core_tpu_torch.ops import quorum as Q
+    from stellar_core_tpu_torch.ops import quorum_cuda
     from stellar_core_tpu_torch.utils.device import pad_signature_batch
+
+    # the tally kernel's launches, path by path (built at the first tally)
+    tally_launches = LaunchCount(quorum_cuda)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2824,6 +2931,7 @@ def main() -> int:
           "accepted_statements": int(want_acc[0].sum()),
           "launches": {ed25519_cuda.KERNEL: launches},
           "seconds": main_s, "exact": True})
+    tally_launches.take("admission")
 
     # -- 5. live SCP: 64 validators externalize, envelopes through the kernel
     import stellar_core_tpu_torch.scp as scp_pkg
@@ -2858,6 +2966,10 @@ def main() -> int:
                              f"{stats['rounds']} delivery rounds")
     if stats["forged_refused"] != stats["rounds"] * len(net.nodes):
         raise AssertionError("a forged envelope was not refused")
+    if tally_launches.take("scp") != tallies:
+        raise AssertionError(f"{tally_launches.by_path['scp']} tally kernel "
+                             f"launches for {tallies} tensor tallies")
+    scp_widest = probe.widest
     device_s, oracle_s = probe.device_seconds, probe.oracle_seconds
     emit({"phase": "scp", "validators": len(net.nodes), "slots": SCP_SLOTS,
           "externalized": [v.hex() for v in values],
@@ -2868,7 +2980,8 @@ def main() -> int:
           "tally_mismatches": 0, "verify_batches": len(sizes),
           "verify_batch_rows": stats["batch_sizes"],
           "verify_batch_padded": sizes,
-          "launches": {ed25519_cuda.KERNEL: scp_launches},
+          "launches": {ed25519_cuda.KERNEL: scp_launches,
+                       quorum_cuda.KERNEL: tally_launches.by_path["scp"]},
           "forged_rows": stats["rounds"],
           "forged_refusals": stats["forged_refused"],
           "seconds_per_slot": slot_s, "seconds": scp_s,
@@ -2883,39 +2996,54 @@ def main() -> int:
         emit(line)
     emit({"phase": "quorum_intersection", "seconds":
           time.perf_counter() - t0})
+    tally_launches.take("quorum_intersection")
 
     # -- 7. node: a standalone node closes 1,000-payment ledgers ------------
     t0 = time.perf_counter()
     node_launches = node_phase(card_line, dev)
     emit({"phase": "node", "seconds": time.perf_counter() - t0})
+    tally_launches.take("node")
 
     # -- 8. network: 21 validators over the loopback overlay -----------------
-    net_launches, net_close_launches = network_phase(card_line, dev)
+    net_launches, net_close_launches, net_tallies, net_widest = \
+        network_phase(card_line, dev)
+    if tally_launches.take("network") != net_tallies:
+        raise AssertionError(f"{tally_launches.by_path['network']} tally "
+                             f"kernel launches for {net_tallies} device "
+                             f"tally calls of network A")
 
     # -- 9. bench: the headline bench at config #2's full size ---------------
     bench_launches, bench_batch = bench_phase(card_line, dev)
+    tally_launches.take("bench")
 
     # -- 10. parallel: data-parallel admission -------------------------------
     parallel_launches = parallel_phase(card_line, bench_batch)
+    tally_launches.take("parallel")
     del bench_batch
 
     # -- 11. cli: two node processes over TCP, driven over HTTP --------------
     cli_launches = cli_phase(card_line)
+    tally_launches.take("cli")
 
     # -- 12. catchup: BASELINE config #4's replay ---------------------------
     catchup_launches = catchup_phase(card_line, dev)
+    tally_launches.take("catchup")
 
     # -- 13. chaos: the scripted fault suite on core-4 -----------------------
     chaos_launches = chaos_phase(card_line, dev)
+    tally_launches.take("chaos")
 
     # -- 14. fuzz: the committed repros on the card --------------------------
     fuzz_launches = fuzz_phase(card_line, dev)
+    tally_launches.take("fuzz")
 
     # -- 15. tools: the port's benchmark tools on the card ------------------
     tools_launches = tools_phase(card_line)
+    tally_launches.take("tools")
 
     # -- 16. netobs: the network observatory on a cuda and a cpu arm -------
     netobs_launches = netobs_phase(card_line)
+    tally_launches.take("netobs")
 
     # -- 17. times -----------------------------------------------------------
     kin = (batch.pubkeys, batch.sigs, batch.msgs)
@@ -2939,6 +3067,9 @@ def main() -> int:
                              f"validators voting (at most {voters})")
     live_ms = cuda_ms(lambda: fn(*args), reps=LIVE_REPS)
     live_counts = replay_counts(lambda: fn(*args), Q)
+    tally_launches.take("times")
+    tally_times = tally_kernel_times({"scp": scp_widest,
+                                      "network": net_widest}, Q)
     t0 = time.perf_counter()
     bound_ms, bound_by, products = bound_ms_verify(
         ref, *(t.cpu().numpy() for t in kin))
@@ -2963,6 +3094,8 @@ def main() -> int:
           "reps": REPS, "plain_reps": 2,
           "total_seconds": time.perf_counter() - t_start})
 
+    net_kind = "accept" if "network.accept" in tally_times else "ratify"
+    net_tally = tally_times[f"network.{net_kind}"]
     emit({"kernels": [{
         "name": ed25519_cuda.KERNEL, "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
@@ -2989,7 +3122,18 @@ def main() -> int:
         "registers": ptxas["registers"],
         "spill_bytes": ptxas["spill_stores"] + ptxas["spill_loads"],
         "stack_frame_bytes": ptxas["stack_frame_bytes"],
-        "blocks_per_sm": shape["blocks_per_sm"]}]})
+        "blocks_per_sm": shape["blocks_per_sm"]}, {
+        "name": quorum_cuda.KERNEL, "route": "cuda",
+        "source": "stellar_core_tpu_torch/csrc/quorum_tally.cu",
+        "replaces": None,
+        "launches": sum(tally_launches.by_path.values()),
+        "launches_by_path": tally_launches.by_path,
+        "max_abs_err": 0, "ms": net_tally["ms"],
+        "plain_ms": net_tally["plain_ms"],
+        "bound_ms": net_tally["bound_ms"],
+        "bound_by": "one copy in, one launch, one copy out, one sync",
+        "library_ms": None, "kernel_ms": net_tally["kernel_ms"],
+        "shape": f"network.{net_kind}", "by_call": tally_times}]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,3 @@
 """Device ops of the port: plain torch tensor ops, and the hand-written
-Hopper kernel for batched ed25519 verify (``ed25519_cuda``)."""
+Hopper kernels for batched ed25519 verify (``ed25519_cuda``) and the live
+SCP federated tally (``quorum_cuda``)."""

@@ -8,7 +8,10 @@ universe on its device, rebuilt only when the (node -> qset-hash) map
 changes.  Each ``Slot.federated_accept/ratify`` call evaluates its
 statement predicates on the host (cheap python over <= N statements),
 sends the vote rows to the device in one copy, and runs the
-threshold/fixpoint math there; the verdict comes back as one bool.
+threshold/fixpoint math there; the verdict comes back as one bool.  On a
+CUDA device that math is one launch of the hand-written kernel
+``csrc/quorum_tally.cu`` (``ops/quorum_cuda.py``) with one synchronisation;
+on a CPU device it is the plain torch ops of ``ops/quorum.py``.
 Quorum sets deeper than 2 levels have no tensor form (ref
 MAXIMUM_QUORUM_NESTING_LEVEL=4, src/scp/QuorumSetUtils.cpp:16) — those
 slots fall back to the exact host evaluation in scp/local_node.py, which
@@ -26,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import quorum_cuda
 from ..utils.device import cpu_threads, default_device
 from . import local_node as LN
 from .statement import companion_qset_hash
@@ -101,6 +105,11 @@ class TallyEngine:
     def device_accept(self, local_qs, qsets, rows: np.ndarray) -> bool:
         """Host rows (2, N) bool — accepted, voted-or-accepted — to the
         device in one copy; v-blocking or ratified, read back as a bool."""
+        if self.device.type == "cuda":
+            # the clock read is the kernel build's reported nvcc time,
+            # which no verdict reads
+            # detlint: allow(det-interproc-taint)
+            return quorum_cuda.tally_accept(local_qs, qsets, rows)
         from ..ops import quorum as Q
 
         with cpu_threads(self.device):
@@ -112,6 +121,11 @@ class TallyEngine:
     def device_ratify(self, local_qs, qsets, rows: np.ndarray) -> bool:
         """Host row (1, N) bool — voted — to the device in one copy;
         ratified, read back as a bool."""
+        if self.device.type == "cuda":
+            # the clock read is the kernel build's reported nvcc time,
+            # which no verdict reads
+            # detlint: allow(det-interproc-taint)
+            return quorum_cuda.tally_ratify(local_qs, qsets, rows)
         from ..ops import quorum as Q
 
         with cpu_threads(self.device):

@@ -24,6 +24,10 @@ An entry that no longer differs fails, so the lists shrink with the
 differences.  ``ops/ed25519_pallas.py`` has no module counterpart: its
 kernel is ``csrc/ed25519_verify.cu``.
 
+A module of the port with no counterpart has its public signatures
+pinned in ``PORT_ONLY``: every public name, with its parameters as
+written.
+
 Tolerance: exact (parameter lists).
 """
 import ast
@@ -104,6 +108,16 @@ KEPT = {
     "utils/tracing.py::CloseRecord.__init__": _RECORD + ": "
                                               "``unix_offset_ns=None`` added",
     "utils/tracing.py::Tracer.unix_ns": _RECORD,
+}
+
+
+#: port modules with no counterpart: public name -> its parameters
+PORT_ONLY = {
+    "ops/quorum_cuda.py": {
+        "build": "",
+        "tally_accept": "local_qs, qsets, rows",
+        "tally_ratify": "local_qs, qsets, rows",
+    },
 }
 
 
@@ -210,3 +224,11 @@ def test_required_device_argument_is_a_difference(tmp_path):
     assert port[-1] == ("device", None)
     assert not only_adds_device_keywords(jax, port)
     assert only_adds_device_keywords(jax, jax + (("device", "None"),))
+
+
+@pytest.mark.parametrize("rel", sorted(PORT_ONLY))
+def test_port_only_signatures_are_pinned(rel):
+    assert not (JAX / rel).exists()
+    got = {name: ", ".join(p if d is None else f"{p}={d}" for p, d in params)
+           for name, params in public_signatures(PORT / rel).items()}
+    assert got == PORT_ONLY[rel]
