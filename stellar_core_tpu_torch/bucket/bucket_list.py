@@ -399,6 +399,9 @@ class BucketList:
 
         self._bg_lock = register_lock(_threading.Lock(), "bucket.bg")
         self._bg_outputs: set = set()  # guarded-by: _bg_lock
+        # seconds on the workers of the background merges finished
+        # since the last take_merge_stats (the ledger's record)
+        self._bg_merge_s = 0.0  # guarded-by: _bg_lock
         # merge-pipeline observability (surfaced via /metrics and bench):
         # sync_fallback_merges MUST stay 0 in steady state — it counts
         # closes that had to run a non-trivial merge inline
@@ -581,13 +584,22 @@ class BucketList:
         # cross-thread linkage)
         with self.tracer.span("bucket.merge.background",
                               parent=parent_span, level=level,
-                              n_newer=len(newer), n_older=len(older)):
+                              n_newer=len(newer), n_older=len(older)) as sp:
             out = merge_buckets(newer, older, self._merge_dir(level + 1),
                                 protect=self._protect_bg_output)
             out.hash()  # pre-hash too: off the close critical path
             if self.index_enabled and not out.is_empty():
                 out.ensure_index()  # index handed off with the output
+        with self._bg_lock:
+            self._bg_merge_s += sp.seconds
         return out
+
+    def take_merge_stats(self) -> float:
+        """The seconds on the workers of the background merges finished
+        since the previous call."""
+        with self._bg_lock:
+            seconds, self._bg_merge_s = self._bg_merge_s, 0.0
+        return seconds
 
     def pending_merge_hashes(self) -> set:
         """Hex hashes of background merge outputs written to the store

@@ -36,6 +36,14 @@ MANUAL_CLOSE_PHASES = ("trigger", "scp", "scp_persist", "close_ledger",
                        "drain", "ledger_closed")
 
 
+def _state_reads(now: tuple, before: tuple, prefix: str) -> dict:
+    """Entry-cache misses and bucket-tier reads (count, ms) between two
+    readings of ``LedgerTxnRoot.state_read_stats``, under ``prefix``."""
+    return {prefix + "cache_misses": now[0] - before[0],
+            prefix + "state_reads": now[1] - before[1],
+            prefix + "state_read_ms": (now[2] - before[2]) * 1000.0}
+
+
 class HerderState:
     BOOTING = 0
     TRACKING = 1
@@ -364,6 +372,8 @@ class Herder:
         # SCP so far, the SCP history's write; the close's record starts
         # from it (LedgerManager.seed_close_record)
         self._record = self._new_record()
+        # LedgerTxnRoot.state_read_stats when the last manual close ended
+        self._reads_at_close = None
         # runs while SCP works on the node's own nomination: its laps
         # are SCP's self time
         self._scp_clock = None
@@ -852,18 +862,27 @@ class Herder:
         """Close exactly one ledger now (ref CommandHandler manualclose).
 
         The ledger's record (``LedgerManager.last_close_phases``) gets the
-        call's wall time, its start on the Unix clock and the part of it
-        that no phase of ``MANUAL_CLOSE_PHASES`` holds."""
+        call's wall time, its start on the Unix clock, the part of it
+        that no phase of ``MANUAL_CLOSE_PHASES`` holds, and the ledger
+        state's cache misses and bucket-tier reads
+        (``LedgerTxnRoot.state_read_stats``) in it (``close_``) and
+        since the previous manual close ended (``admit_``)."""
         assert self.app.config.MANUAL_CLOSE
         lm = self.app.ledger_manager
         seq = lm.last_closed_seq()
+        reads0 = lm.root.state_read_stats()
         with tracing.stopwatch() as sw:
             self.trigger_next_ledger()
         if lm.last_closed_seq() > seq:
+            reads = lm.root.state_read_stats()
             whole = sw.seconds * 1000.0
             rec = lm.add_close_phases({
                 "manual_close": whole,
-                "t0_unix_ns": self.app.tracer.unix_ns(sw.t0)})
+                "t0_unix_ns": self.app.tracer.unix_ns(sw.t0),
+                **_state_reads(reads0, self._reads_at_close or reads0,
+                               "admit_"),
+                **_state_reads(reads, reads0, "close_")})
+            self._reads_at_close = reads
             parts = sum(rec.get(k, 0.0) for k in MANUAL_CLOSE_PHASES)
             lm.add_close_phases({"unattributed": max(0.0, whole - parts)})
         return lm.last_closed_seq()

@@ -305,16 +305,18 @@ class ClosePipeline:
             self._run_prefetch, bl, buckets, list(frames), parent)
 
     def _run_prefetch(self, bl, buckets, frames, parent
-                      ) -> Dict[bytes, object]:
+                      ) -> Tuple[Dict[bytes, object], float]:
         """Worker-side: derive the exact key set and walk the bucket
         snapshot once (one batched bloom walk instead of thousands of
-        point probes on the trigger thread)."""
+        point probes on the trigger thread); the entries found and the
+        walk's seconds."""
         keys: set = set()
         for frame in frames:
             keys.update(frame.keys_to_prefetch())
         with self.app.tracer.span("ledger.close.prefetch.stage",
-                                  parent=parent, keys=len(keys)):
-            return bl.get_entries_from(buckets, sorted(keys))
+                                  parent=parent, keys=len(keys)) as sp:
+            found = bl.get_entries_from(buckets, sorted(keys))
+        return found, sp.seconds
 
     def adopt_prefetch(self, fut, root) -> int:
         """Fold a staged prefetch into the root entry cache (keys the
@@ -326,7 +328,7 @@ class ClosePipeline:
         if fut is None:
             return 0
         try:
-            found = fut.result()
+            found, walk_s = fut.result()
         except Exception:
             # a prefetch failure only costs the warm cache; the close's
             # own prefetch phase reloads the keys authoritatively
@@ -334,6 +336,7 @@ class ClosePipeline:
                 "ledger.close.prefetch-failure").inc()
             return 0
         self.stats["prefetch_keys"] += len(found)
+        root.note_bucket_walk(len(found), walk_s)
         n = root.adopt_prefetch(found)
         self.stats["prefetch_adopted"] += n
         self.app.metrics.counter("ledger.close.prefetch-adopted").inc(n)

@@ -437,6 +437,9 @@ class LedgerManager:
                 * 1000.0, 3)
             phases["bucket_hash"] = round(
                 (bl.stats["hash_s"] - stats0["hash_s"]) * 1000.0, 3)
+            # the worker's merges that finished since the previous close
+            # (they share the host with this thread)
+            phases["merge_ms"] = round(bl.take_merge_stats() * 1000.0, 3)
             sync_fb = int(bl.stats["sync_fallback_merges"]
                           - stats0["sync_fallback_merges"])
             if sync_fb:

@@ -18,6 +18,7 @@ from __future__ import annotations
 from fractions import Fraction
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from ..utils.tracing import stopwatch
 from ..xdr import types as T
 from .packed import entry_type_from_key
 
@@ -435,6 +436,11 @@ class LedgerTxnRoot(AbstractLedgerTxn):
         self.reads_from_buckets = 0
         self.reads_from_sql = 0
         self.reads_from_overlay = 0
+        # keys the close pipeline's prefetch worker walked in the bucket
+        # tier (note_bucket_walk), and the seconds of every bucket-tier
+        # read: get, prefetch and the worker's walks (state_read_stats)
+        self.reads_from_bucket_walks = 0
+        self.bucket_read_seconds = 0.0
 
     def enable_bucket_reads(self) -> None:
         if self._bucket_list is not None:
@@ -515,6 +521,13 @@ class LedgerTxnRoot(AbstractLedgerTxn):
             n += 1
         return n
 
+    def note_bucket_walk(self, keys: int, seconds: float) -> None:
+        """Count a walk of ``keys`` keys over a snapshot of the bucket
+        tier that another thread made for this root (the close
+        pipeline's prefetch worker), and its seconds."""
+        self.reads_from_bucket_walks += keys
+        self.bucket_read_seconds += seconds
+
     def note_bucket_applied(self, kbs) -> None:
         """A ledger close folded these keys into the bucket list — the
         buckets now answer for them, drop the overlay copies."""
@@ -563,8 +576,10 @@ class LedgerTxnRoot(AbstractLedgerTxn):
                 else:
                     ask.append(kb)
             if ask:
-                found = self._bucket_list().get_entries(ask)
+                with stopwatch() as sw:
+                    found = self._bucket_list().get_entries(ask)
                 self.reads_from_buckets += len(ask)
+                self.bucket_read_seconds += sw.seconds
                 for kb in ask:
                     self._cache_put(kb, found.get(kb))
                     n += 1
@@ -583,6 +598,16 @@ class LedgerTxnRoot(AbstractLedgerTxn):
                     if blob is not None else None)
                 n += 1
         return n
+
+    def state_read_stats(self) -> Tuple[int, int, float]:
+        """Cumulative (entry-cache misses of ``get``; keys read from the
+        bucket tier: those ``get`` and ``prefetch`` found missing from
+        the cache, and every key of the prefetch worker's walks; the
+        seconds of those reads): the ledger's record takes their
+        deltas."""
+        return (self.cache_misses,
+                self.reads_from_buckets + self.reads_from_bucket_walks,
+                self.bucket_read_seconds)
 
     def prefetch_hit_rate(self) -> float:
         total = self.cache_hits + self.cache_misses
@@ -606,7 +631,9 @@ class LedgerTxnRoot(AbstractLedgerTxn):
                 entry = self._sql_ahead[kb]
             else:
                 self.reads_from_buckets += 1
-                entry = self._bucket_list().get_entry(kb)
+                with stopwatch() as sw:
+                    entry = self._bucket_list().get_entry(kb)
+                self.bucket_read_seconds += sw.seconds
         else:
             self.reads_from_sql += 1
             row = self.db.execute(

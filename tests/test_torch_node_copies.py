@@ -31,9 +31,8 @@ utils/__init__.py utils/clock.py utils/scheduler.py utils/metrics.py
 utils/txtrace.py utils/floodtrace.py utils/vitals.py utils/minitoml.py
 utils/lockdep.py
 database/__init__.py
-ledger/__init__.py ledger/packed.py ledger/ledger_txn.py
-ledger/close_pipeline.py
-bucket/__init__.py bucket/index.py bucket/disk_bucket.py bucket/bucket_list.py
+ledger/__init__.py ledger/packed.py
+bucket/__init__.py bucket/index.py bucket/disk_bucket.py
 transactions/__init__.py transactions/utils.py
 transactions/signature_checker.py transactions/frame.py
 transactions/fee_bump.py transactions/sponsorship.py
@@ -70,13 +69,16 @@ simulation/fuzz/minimize.py simulation/fuzz/campaign.py
 # build directory; the command line's own name.  The node's per-ledger
 # record: the queue's admission stages, the host verify's misses, the
 # database's commits by thread, the flight recorder's Unix clock
-# (tests/test_torch_ledger_record.py holds each).
+# (tests/test_torch_ledger_record.py holds each); the ledger state's
+# bucket-tier reads and the bucket list's background merges
+# (tests/test_torch_state_reads.py).
 SEAMS = """
 crypto/__init__.py native/__init__.py herder/__init__.py herder/tx_set.py
 herder/herder.py ledger/ledger_manager.py main/config.py main/application.py
 overlay/manager.py simulation/simulation.py main/command_line.py __main__.py
 simulation/fuzz/schedule.py simulation/fuzz/executor.py
 herder/tx_queue.py crypto/ed25519.py database/database.py utils/tracing.py
+ledger/ledger_txn.py ledger/close_pipeline.py bucket/bucket_list.py
 """.split()
 
 # The command line names its program: the JAX text with these strings

@@ -62,6 +62,8 @@ DEVICE_KEYWORDS = (
 _REWRITE = "a rewrite in torch, held by its own port tests"
 _RECORD = ("the node's per-ledger record and its Unix clock "
            "(tests/test_torch_ledger_record.py)")
+_STATE = ("the per-ledger record's bucket-tier reads and background "
+          "merges (tests/test_torch_state_reads.py)")
 
 #: other kept differences: ``module`` (all of a rewritten module's) or
 #: ``module::name`` -> the reason
@@ -108,6 +110,9 @@ KEPT = {
     "utils/tracing.py::CloseRecord.__init__": _RECORD + ": "
                                               "``unix_offset_ns=None`` added",
     "utils/tracing.py::Tracer.unix_ns": _RECORD,
+    "ledger/ledger_txn.py::LedgerTxnRoot.state_read_stats": _STATE,
+    "ledger/ledger_txn.py::LedgerTxnRoot.note_bucket_walk": _STATE,
+    "bucket/bucket_list.py::BucketList.take_merge_stats": _STATE,
 }
 
 
